@@ -1,0 +1,206 @@
+"""The CUDA trace kernel's wrapper, support test and plain version, on CPU.
+
+The kernel itself (``pygenray_tpu_torch/csrc/trace_fan.cu``) runs only on a
+CUDA card; ``chip_smoke.py`` holds it against its plain version there.  Here
+the wrapper, on CPU tensors, runs that plain version, which must reproduce
+the JAX package's Pallas kernel (``trace_pallas`` in interpret mode) at
+float32 with ``tests/test_pallas.py``'s tolerances: counters, death codes
+and ``alive_save`` exact, travel times within 5e-6 s (1e-5 s with a
+Chebyshev bottom angle).  As there, the
+monomial (Horner) path is disabled (``poly_ok=False``): the interpreter
+contracts fused multiply-adds where torch does not, and the ulp-level
+difference grows along multi-bounce rays.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+import pygenray_tpu as jp
+import pygenray_tpu_torch as tp
+from pygenray_tpu.integrate import SolverSettings as JSettings, _use_cheb as j_use_cheb
+from pygenray_tpu.ops.pallas_stepper import (
+    _launch_consts as j_launch_consts,
+    pallas_supported,
+    trace_pallas,
+)
+from pygenray_tpu_torch.integrate import SolverSettings, _plan, _trace_impl, trace
+from pygenray_tpu_torch.ops import _build, stepper
+from pygenray_tpu_torch.ops.stepper import (
+    _launch_consts,
+    kernel_supported,
+    trace_kernel,
+)
+
+
+def _tables(kind):
+    rng = np.random.default_rng(5)
+    nr = 8
+    r = np.linspace(0.0, 100e3, nr)
+    z = np.linspace(0.0, 6000.0, 512)
+    c = np.outer(np.ones(nr), jp.munk_ssp(z))
+    bathy, bathy_r = np.full(nr, 4600.0), r
+    kw = {}
+    if kind == "curved":
+        bathy = 4400.0 + 300.0 * np.sin(r / 12e3)
+    elif kind == "rd":
+        c = np.array([jp.munk_ssp(z, sofar_depth=1300 + 0.002 * ri) for ri in r])
+    elif kind == "table":
+        kw["interp"] = "table"
+    elif kind == "seg":
+        c, r, bathy, bathy_r = c[:2], r[[0, -1]], bathy[:2], r[[0, -1]]
+        kw["interp"] = "seg"
+    elif kind == "spline":
+        bathy_r = np.linspace(0.0, 100e3, 40)
+        bathy = 4400.0 + rng.uniform(0.0, 400.0, 40)
+    return (c, r, z, bathy, bathy_r), kw
+
+
+def env_pair(kind, dtype="float32", no_pow=False):
+    args, kw = _tables(kind)
+    je = jp.make_env_data(*args, dtype=jnp.dtype(dtype), **kw)
+    te = tp.make_env_data(*args, dtype=getattr(torch, dtype), **kw)
+    if no_pow:
+        je = dataclasses.replace(je, poly_ok=False)
+        te = dataclasses.replace(te, poly_ok=False)
+    return je, te
+
+
+@pytest.mark.parametrize(
+    "kind,angles,kahan,ts_atol",
+    [
+        # bouncing fan plus test_pallas.py's death angles (code 1) and a
+        # source below the domain (code 2)
+        ("flat", np.concatenate([np.linspace(-18, 18, 92), [-90.0, -89.0, -45.0, 0.0]]),
+         True, 5e-6),
+        # Chebyshev bottom angle, Kahan off; test_pallas.py's sloped-bottom
+        # tolerance (sin/cos of the bottom angle round differently)
+        ("curved", np.linspace(-20, 20, 64), False, 1e-5),
+    ],
+)
+def test_plain_version_matches_pallas_interpret(kind, angles, kahan, ts_atol):
+    je, te = env_pair(kind, no_pow=True)
+    x1, num_save, dx = 20e3, 5, 200.0
+    h, sps, nseg = _plan(0.0, x1, num_save, dx)
+    geom = (0.0, x1, h, sps, nseg)
+    z0 = np.full(len(angles), 1300.0)
+    z0[-1] = 6500.0  # below z_dom: dead at launch
+    c_src = np.interp(1300.0, np.asarray(je.z), np.asarray(je.c[0]))
+    p0 = np.sin(np.radians(-angles)) / c_src
+    ref = trace_pallas(je, jnp.asarray(z0, jnp.float32), jnp.asarray(p0, jnp.float32), geom,
+                       JSettings(dx=dx, kahan=kahan), interpret=True)
+    n0 = stepper.LAUNCHES
+    out = trace_kernel(te, z0, p0, geom, SolverSettings(dx=dx, kahan=kahan))
+    assert stepper.LAUNCHES == n0  # CPU tensors: the plain version, no launch
+    assert out.ts.dtype == torch.float32 and out.ts.shape == (len(angles), num_save)
+    for f in ("n_surf", "n_bott", "death_code", "alive", "alive_save"):
+        np.testing.assert_array_equal(np.asarray(getattr(ref, f)), getattr(out, f).numpy(),
+                                      err_msg=f)
+    np.testing.assert_allclose(np.asarray(ref.ts), out.ts.numpy(), rtol=0, atol=ts_atol)
+    np.testing.assert_allclose(np.asarray(ref.zs), out.zs.numpy(), rtol=0, atol=1e-2)
+    np.testing.assert_allclose(np.asarray(ref.rs), out.rs.numpy(), rtol=0, atol=0)
+    codes = set(out.death_code.tolist())
+    assert 5 not in codes  # no calm blocks in the port
+    if kind == "flat":
+        assert {1, 2} <= codes and int(out.n_bott.sum()) > 0
+    else:
+        assert te.bangle_mode == "cheb" and int(out.n_bott.sum()) > 0
+
+
+def test_trace_kernel_cpu_is_the_torch_op_loop():
+    _, te = env_pair("flat")
+    assert te.poly_ok  # the Horner variant
+    h, sps, nseg = _plan(0.0, 10e3, 3, 500.0)
+    geom = (0.0, 10e3, h, sps, nseg)
+    p0 = np.sin(np.radians(np.linspace(-15, 15, 10))) / 1500.0
+    s = SolverSettings(dx=500.0)
+    a = trace_kernel(te, 1300.0, p0, geom, s)
+    b = trace(te, 1300.0, p0, 0.0, 10e3, 3, dataclasses.replace(s, backend="ops"))
+    c = _trace_impl(te, 1300.0, p0, geom, s)
+    for f in ("ts", "zs", "ps", "n_surf", "n_bott", "death_code", "alive_save", "rs"):
+        assert torch.equal(getattr(a, f), getattr(b, f)) and torch.equal(getattr(a, f), getattr(c, f))
+
+
+def _settings(**kw):
+    return JSettings(**kw), SolverSettings(**kw)
+
+
+@pytest.mark.parametrize(
+    "kind,dtype,skw,expect",
+    [
+        ("flat", "float32", {}, True),  # Horner, constant bottom angle
+        ("curved", "float32", {}, True),  # Chebyshev bottom angle
+        ("flat", "float32", {"kahan": False, "terminate_backwards": False}, True),
+        ("flat", "float64", {}, False),  # f64: the torch-op loop
+        ("flat", "float32", {"interp": "table"}, False),
+        ("rd", "float32", {}, False),  # range-dependent: a later kernel
+        ("seg", "float32", {}, False),  # segment mode: a later kernel
+        ("table", "float32", {}, False),
+        ("spline", "float32", {}, False),  # spline bottom angle
+    ],
+)
+def test_kernel_supported_truth_table(kind, dtype, skw, expect):
+    """``kernel_supported`` is ``pallas_supported`` narrowed to the spectral
+    range-independent variant."""
+    je, te = env_pair(kind, dtype)
+    js, ts = _settings(**skw)
+    use_cheb = j_use_cheb(je, js)
+    narrowed = pallas_supported(je, js, use_cheb) and use_cheb and not je.range_dependent
+    assert kernel_supported(te, ts) == narrowed == expect
+    if not expect:
+        with pytest.raises(ValueError):
+            trace_kernel(te, 1300.0, np.zeros(2), (0.0, 1e3, 500.0, 1, 2), ts)
+        with pytest.raises(ValueError, match="unsupported"):
+            trace(te, 1300.0, np.zeros(2), 0.0, 1e3, 2, dataclasses.replace(ts, backend="kernel"))
+
+
+def test_kernel_supported_needs_the_fit_it_is_asked_for():
+    _, te = env_pair("table")
+    with pytest.raises(ValueError, match="no Chebyshev fit"):
+        kernel_supported(te, SolverSettings(interp="cheb"))
+
+
+@pytest.mark.parametrize("kind,x1", [("flat", 100e3), ("curved", 120e3)])
+def test_launch_consts_match_pallas(kind, x1):
+    je, te = env_pair(kind)
+    js, ts = _settings(dx=200.0, bbox_tol=1e-5)
+    h, sps, nseg = _plan(0.0, x1, 12, 200.0)
+    jc, jx = j_launch_consts(je, js, 0.0, h, sps * nseg, False, bool(je.poly_ok))
+    tc, tx = _launch_consts(te, ts, 0.0, h, sps * nseg)
+    np.testing.assert_array_equal(jx, tx)
+    (zlo, zhi, sc, off, sin_lim, btol, _, _, s2b, c2b, mode, b_rlo, b_rhi, term_back,
+     any_x_oob, _, use_pow, kahan, _) = jc
+    assert (tc.zlo_m, tc.zhi_p) == (zlo - btol, zhi + btol)
+    assert (tc.sc, tc.off, tc.sin_lim, tc.s2b, tc.c2b) == (sc, off, sin_lim, s2b, c2b)
+    assert (tc.b_sum, tc.b_span) == (b_rlo + b_rhi, b_rhi - b_rlo)
+    assert tc.bangle_cheb == (mode == "cheb")
+    assert (tc.term_back, tc.any_x_oob, tc.use_pow, tc.kahan) == (
+        term_back, any_x_oob, use_pow, kahan)
+    assert tc.any_x_oob == (x1 > 100e3)
+
+
+def test_build_requires_nvcc(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.Path, "is_file", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_build_flags_and_source_hash(monkeypatch):
+    flags = _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
+    assert not any("fast_math" in f for f in flags)
+    src = (_build.CSRC / "trace_fan.cu").read_text()
+    assert 'extern "C" int trace_fan_f32(' in src
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR and path == _build.library_path()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", flags + ("-lineinfo",))
+    assert _build.library_path() != path
+    # one ctypes argument type per C parameter
+    params = src.split('extern "C" int trace_fan_f32(')[1].split(")")[0].split(",")
+    assert len(params) == len(stepper._ARGTYPES)
