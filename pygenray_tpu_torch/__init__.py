@@ -1,9 +1,12 @@
 """pygenray_tpu_torch — 2D ocean-acoustic ray tracing in PyTorch and CUDA.
 
 The PyTorch port of ``pygenray_tpu``: the same public API, conventions and
-numbers, with the forward ray-fan trace running as a hand-written CUDA
-kernel (``csrc/trace_fan.cu``) on a CUDA device and as a torch-op step loop
-everywhere else.  This package imports torch, numpy and scipy, never jax.
+numbers.  On a CUDA device the forward ray-fan trace runs as a hand-written
+CUDA kernel (``csrc/trace_fan.cu``) and the eigenray search's Newton
+iterations as a forward-tangent kernel (``csrc/trace_tangent.cu``); on the
+CPU both run as torch-op step loops.  The entry points build their tensors
+on the CUDA device unless the caller passes ``device="cpu"``.  This package
+imports torch, numpy and scipy, never jax.
 
 Flat public namespace: the subset of ``pygenray_tpu``'s that this port
 provides so far.
@@ -19,6 +22,7 @@ from .environment import (
 from .envdata import EnvData, env_from_reference, make_env_data, with_spectral
 from .integrate import DEATH_CODES, SolverSettings, TraceResult, trace
 from .shoot import shoot_ray, shoot_rays, settings_for
+from .eigenrays import find_eigenrays, find_eigenrays_batch
 from .ray_objects import EigenRays, Ray, RayFan
 from .ops.host import (
     bilinear_np,
@@ -56,6 +60,8 @@ __all__ = [
     "shoot_ray",
     "shoot_rays",
     "settings_for",
+    "find_eigenrays",
+    "find_eigenrays_batch",
     "Ray",
     "RayFan",
     "EigenRays",

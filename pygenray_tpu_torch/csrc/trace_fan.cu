@@ -3,10 +3,14 @@
 //
 // Replaces: the Pallas TPU mega-kernel `_make_kernel`
 // (pygenray_tpu/ops/pallas_stepper.py:228-701) as launched by
-// `trace_pallas` (:2733), for its range-independent spectral variant:
-//   * profile c(z), dc/dz(z) from one Chebyshev fit, evaluated by Horner on
+// `trace_pallas` (:2733), for its spectral variants:
+//   * profile c(z), dc/dz(z) from Chebyshev fits, evaluated by Horner on
 //     the monomial re-expression (use_pow) or by Clenshaw, chosen at run
 //     time;
+//   * range-independent (one coefficient row) or range-dependent (the
+//     per-step rows blended linearly in range that the JAX kernel DMAs from
+//     `_station_rows`, :2695: row k of the mid-step and step-end tables at
+//     step k);
 //   * constant or Chebyshev bottom angle;
 //   * Kahan-compensated T and z, on or off;
 //   * float32 only, as the Pallas kernel is.
@@ -21,9 +25,12 @@
 // no edge padding, no block-level any(cross) branch, no calm/dyn/hot
 // bodies (so death code 5 never occurs), no station DMA.  Each thread holds
 // its ray state in registers for all nseg*sps steps and runs the crossing
-// fix only when its own ray crosses a boundary.  The coefficient rows
-// (K <= 256) and the bottom-angle series (Kb <= 128) sit in shared memory;
-// every thread reads the same entry, so the reads are broadcasts.  The
+// fix only when its own ray crosses a boundary.  The range-independent
+// coefficient rows (K <= 256) and the bottom-angle series (Kb <= 128) sit
+// in shared memory; every thread reads the same entry, so the reads are
+// broadcasts.  Range-dependent rows stay in global memory: every thread of
+// a block reads the same row at step k, so those reads are broadcasts too,
+// served from L1 (4 x K floats a step, against ~300 operations).  The
 // per-step bathymetry b0s/b1s and the domain-exit flags xoob come from the
 // wrapper, computed exactly as the plain version computes them (the flags on
 // the host in float64: float32 range arithmetic must not decide deaths).
@@ -133,15 +140,18 @@ __device__ __forceinline__ void kahan_add(float& val, float& comp, float delta) 
   val = t;
 }
 
-template <bool POW>
+template <bool POW, bool RD>
 __global__ void __launch_bounds__(TF_BLOCK)
 trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restrict__ z0v,
                  const float* __restrict__ ccoef, const float* __restrict__ cpcoef,
                  const float* __restrict__ bacoef, const float* __restrict__ b0s,
                  const float* __restrict__ b1s, const unsigned char* __restrict__ xoob,
+                 const float* __restrict__ cms, const float* __restrict__ cpms,
+                 const float* __restrict__ c1s, const float* __restrict__ cp1s,
                  float* __restrict__ ts, float* __restrict__ zs, float* __restrict__ ps,
                  int* __restrict__ n_surf_out, int* __restrict__ n_bott_out,
                  int* __restrict__ death_out, int* __restrict__ dseg_out) {
+  // the initial right-hand side's rows (every step's, range-independent)
   __shared__ float s_c[TF_MAX_K];
   __shared__ float s_cp[TF_MAX_K];
   __shared__ float s_ba[TF_MAX_KB];
@@ -182,10 +192,15 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
         }
         continue;
       }
+      const size_t row = RD ? (size_t)k * P.K : 0;
+      const float* cm = RD ? cms + row : s_c;  // mid-step rows
+      const float* cpm = RD ? cpms + row : s_cp;
+      const float* c1 = RD ? c1s + row : s_c;  // end-of-step rows
+      const float* cp1 = RD ? cp1s + row : s_cp;
       // ---- RK4 (k1 carried from the previous step's end derivative) ----
-      const Deriv k2 = rhs<POW>(s_c, s_cp, P, z + 0.5f * hs * k1.kz, p + 0.5f * hs * k1.kp);
-      const Deriv k3 = rhs<POW>(s_c, s_cp, P, z + 0.5f * hs * k2.kz, p + 0.5f * hs * k2.kp);
-      const Deriv k4 = rhs<POW>(s_c, s_cp, P, z + hs * k3.kz, p + hs * k3.kp);
+      const Deriv k2 = rhs<POW>(cm, cpm, P, z + 0.5f * hs * k1.kz, p + 0.5f * hs * k1.kp);
+      const Deriv k3 = rhs<POW>(cm, cpm, P, z + 0.5f * hs * k2.kz, p + 0.5f * hs * k2.kp);
+      const Deriv k4 = rhs<POW>(c1, cp1, P, z + hs * k3.kz, p + hs * k3.kp);
       const float dT = h6 * (k1.kT + 2.0f * k2.kT + 2.0f * k3.kT + k4.kT);
       const float dz = h6 * (k1.kz + 2.0f * k2.kz + 2.0f * k3.kz + k4.kz);
       const float dp = h6 * (k1.kp + 2.0f * k2.kp + 2.0f * k3.kp + k4.kp);
@@ -220,7 +235,7 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
         const float p_c = hermite(f, p, p1, hs * k1.kp, hs * k4.kp);
         // reflect (sin θ' = sin 2β cos θ - cos 2β sin θ, sin θ = c p)
         const float u_c = clampf(P.sc * z_c - P.off, -1.0f, 1.0f);
-        const float c_c = poly<POW>(s_c, P.K, u_c);
+        const float c_c = poly<POW>(cm, P.K, u_c);
         const float sin_th = clampf(p_c * c_c, -1.0f, 1.0f);
         const float cos_th = sqrtf(maxf(1.0f - sin_th * sin_th, 0.0f));
         float s2b = P.s2b, c2b = P.c2b;
@@ -237,8 +252,8 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
         back_dead = P.term_back && bott && (c2b * cos_th + s2b * sin_th < -1e-9f);
         // re-integrate the remainder of the step from the crossing (Heun)
         const float hr = (1.0f - f) * hs;
-        const Deriv r1 = rhs<POW>(s_c, s_cp, P, z_c, p_ref);
-        const Deriv r2 = rhs<POW>(s_c, s_cp, P, z_c + hr * r1.kz, p_ref + hr * r1.kp);
+        const Deriv r1 = rhs<POW>(cm, cpm, P, z_c, p_ref);
+        const Deriv r2 = rhs<POW>(c1, cp1, P, z_c + hr * r1.kz, p_ref + hr * r1.kp);
         if (!back_dead) {
           dT_tot = t_off + hr * 0.5f * (r1.kT + r2.kT);
           dz_tot = (z_c + hr * 0.5f * (r1.kz + r2.kz)) - z;
@@ -259,7 +274,7 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
       p = p_new;
 
       // ---- end-of-step derivative (next step's k1) + death checks ----
-      k1 = rhs<POW>(s_c, s_cp, P, z, p);
+      k1 = rhs<POW>(c1, cp1, P, z, p);
       const bool vert = fabsf(k1.c * p) > P.sin_lim;
       const bool oob = (z > P.zhi_p) || (z < P.zlo_m) || (P.any_x_oob && xoob[k]);
       death = back_dead ? 3 : (vert ? 1 : (oob ? 2 : death));
@@ -278,18 +293,33 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
   dseg_out[i] = dseg;
 }
 
+template <bool POW, bool RD>
+void launch(const Params& P, cudaStream_t s, const float* p0, const float* z0,
+            const float* ccoef, const float* cpcoef, const float* bacoef, const float* b0s,
+            const float* b1s, const unsigned char* xoob, const float* cms, const float* cpms,
+            const float* c1s, const float* cp1s, float* ts, float* zs, float* ps, int* n_surf,
+            int* n_bott, int* death, int* dseg) {
+  const dim3 grid((P.B + TF_BLOCK - 1) / TF_BLOCK);
+  trace_fan_kernel<POW, RD><<<grid, TF_BLOCK, 0, s>>>(P, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s,
+                                                       xoob, cms, cpms, c1s, cp1s, ts, zs, ps,
+                                                       n_surf, n_bott, death, dseg);
+}
+
 }  // namespace
 
 extern "C" int trace_fan_f32(const float* p0, const float* z0, const float* ccoef,
                              const float* cpcoef, const float* bacoef, const float* b0s,
-                             const float* b1s, const unsigned char* xoob, float* ts, float* zs,
-                             float* ps, int* n_surf, int* n_bott, int* death, int* dseg, int B,
-                             int K, int Kb, int nseg, int sps, int use_pow, int bangle_cheb,
-                             int term_back, int kahan, int any_x_oob, float x0, float h,
-                             float zlo_m, float zhi_p, float sc, float off, float sin_lim,
-                             float s2b, float c2b, float b_sum, float b_span, void* stream) {
+                             const float* b1s, const unsigned char* xoob, const float* cms,
+                             const float* cpms, const float* c1s, const float* cp1s, float* ts,
+                             float* zs, float* ps, int* n_surf, int* n_bott, int* death,
+                             int* dseg, int B, int K, int Kb, int nseg, int sps, int use_pow,
+                             int bangle_cheb, int term_back, int kahan, int any_x_oob, int rd,
+                             float x0, float h, float zlo_m, float zhi_p, float sc, float off,
+                             float sin_lim, float s2b, float c2b, float b_sum, float b_span,
+                             void* stream) {
   if (B <= 0 || K < 1 || K > TF_MAX_K || Kb < 1 || Kb > TF_MAX_KB || nseg < 1 || sps < 1)
     return (int)cudaErrorInvalidValue;
+  if (rd && !(cms && cpms && c1s && cp1s)) return (int)cudaErrorInvalidValue;
   Params P;
   P.B = B;
   P.K = K;
@@ -311,15 +341,17 @@ extern "C" int trace_fan_f32(const float* p0, const float* z0, const float* ccoe
   P.c2b = c2b;
   P.b_sum = b_sum;
   P.b_span = b_span;
-  const dim3 grid((B + TF_BLOCK - 1) / TF_BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
-  if (use_pow)
-    trace_fan_kernel<true><<<grid, TF_BLOCK, 0, s>>>(P, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s,
-                                                      xoob, ts, zs, ps, n_surf, n_bott, death,
-                                                      dseg);
-  else
-    trace_fan_kernel<false><<<grid, TF_BLOCK, 0, s>>>(P, p0, z0, ccoef, cpcoef, bacoef, b0s,
-                                                       b1s, xoob, ts, zs, ps, n_surf, n_bott,
-                                                       death, dseg);
+#define TF_ARGS \
+  P, s, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s, xoob, cms, cpms, c1s, cp1s, ts, zs, ps, n_surf, \
+      n_bott, death, dseg
+  if (use_pow) {
+    if (rd) launch<true, true>(TF_ARGS);
+    else launch<true, false>(TF_ARGS);
+  } else {
+    if (rd) launch<false, true>(TF_ARGS);
+    else launch<false, false>(TF_ARGS);
+  }
+#undef TF_ARGS
   return (int)cudaGetLastError();
 }

@@ -176,7 +176,7 @@ def make_env_data(
     seg_basis: str = "auto",
     force_range_dependent: bool = False,
     dtype=None,
-    device="cpu",
+    device="cuda",
 ) -> EnvData:
     """Build an ``EnvData`` from host tables.
 
@@ -184,8 +184,9 @@ def make_env_data(
     (``c`` is (nr, nz) or (nz,); ``dcdz`` defaults to ``np.gradient`` along
     depth or ``"consistent"``; ``bottom_angle`` defaults to
     ``degrees(arctan(gradient(bathy)))``; ``interp`` is "table", "cheb",
-    "seg" or "auto"), plus ``device``: the tensors are created there.
-    ``dtype`` defaults to float32.
+    "seg" or "auto"), plus ``device``: the tensors are created there (the
+    CUDA device unless the caller asks for another, e.g. ``"cpu"``; with no
+    card, torch raises).  ``dtype`` defaults to float32.
     """
     c = np.asarray(c, np.float64)
     if c.ndim == 1:
@@ -413,14 +414,15 @@ def make_env_data(
     )
 
 
-def env_from_reference(fields: dict, meta: dict, device="cpu", dtype=None) -> EnvData:
+def env_from_reference(fields: dict, meta: dict, device="cuda", dtype=None) -> EnvData:
     """Build an ``EnvData`` from another ``EnvData``'s arrays and metadata.
 
     ``fields`` maps every name in ``DATA_FIELDS`` to an array (for example a
     ``pygenray_tpu`` environment's leaves converted with ``np.asarray``);
     ``meta`` maps every name in ``META_FIELDS`` to its value.  This carries a
     reference environment's exact state across without importing its
-    framework.  ``dtype`` defaults to float32.
+    framework.  ``device`` defaults to the CUDA device, ``dtype`` to
+    float32.
     """
     missing = [f for f in DATA_FIELDS if f not in fields]
     missing += [m for m in META_FIELDS if m not in meta]

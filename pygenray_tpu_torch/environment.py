@@ -234,10 +234,11 @@ class OceanEnvironment2D:
 
     def env_data(
         self, flatearth: bool = True, mirrored: bool = False,
-        interp: str = "auto", dtype=None, device="cpu",
+        interp: str = "auto", dtype=None, device="cuda",
     ) -> EnvData:
         """Cached ``EnvData`` for the integrator, with its tensors on
-        ``device``.  ``dtype`` defaults to float32 (float64 only when asked
+        ``device`` (the CUDA device unless the caller asks for another, e.g.
+        ``"cpu"``).  ``dtype`` defaults to float32 (float64 only when asked
         for)."""
         dtype = resolve_dtype(dtype)
         key = (flatearth, mirrored, interp, str(dtype), str(torch.device(device)))

@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``pygenray_tpu_torch/csrc/*.cu`` into
-one shared library with a plain C interface under
-``pygenray_tpu_torch/_build/``; the file name carries a hash of the sources
-and flags, so an edited source builds anew.  The library is loaded with
-``ctypes``.  No PyTorch headers are involved, so a build takes seconds.
+At first use, ``nvcc`` compiles each ``pygenray_tpu_torch/csrc/<name>.cu``
+into its own shared library with a plain C interface under
+``pygenray_tpu_torch/_build/``, one ``nvcc`` per source, all started
+together; a file name carries a hash of its source, the shared headers
+(``*.cuh``) and the flags, so an edited source builds anew.  Each library
+is loaded with ``ctypes``.  No PyTorch headers are involved, so a build
+takes seconds.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -18,7 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "load", "find_nvcc", "NVCC_FLAGS"]
+__all__ = ["build", "load", "find_nvcc", "sources", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,7 +38,7 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIB = None
+_LIBS = {}
 BUILD_LOG = ""  # nvcc's output (ptxas register/spill report) of the last build
 
 
@@ -55,44 +57,56 @@ def find_nvcc() -> str:
     )
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources() -> list:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode())
-    for src in _sources():
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libpygenray_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libpygenray_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for the current sources exists;
-    returns its path."""
+def build() -> dict:
+    """Compile every kernel source whose library for the current sources
+    is missing, one ``nvcc`` each, in parallel; returns {name: path}."""
     global BUILD_LOG
-    so = library_path()
-    if so.exists():
-        return so
+    paths = {name: library_path(name) for name in sources()}
+    todo = {name: so for name, so in paths.items() if not so.exists()}
+    if not todo:
+        return paths
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = r.stdout + r.stderr
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
-    return so
+    procs = {}
+    for name, so in todo.items():
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, (tmp, proc) in procs.items():
+        out = proc.communicate()[0]
+        logs.append(f"== {name}.cu\n{out}")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}.cu (exit {proc.returncode})")
+        else:
+            # atomic: a concurrent loader never sees a partial file
+            os.replace(tmp, todo[name])
+    BUILD_LOG = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{BUILD_LOG}")
+    return paths
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _LIB
-    if _LIB is None:
-        _LIB = ctypes.CDLL(str(build()))
-    return _LIB
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _LIBS[name] = ctypes.CDLL(str(build()[name]))
+    return lib

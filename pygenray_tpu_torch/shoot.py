@@ -140,7 +140,7 @@ def shoot_rays(
     dx: float = None,
     interp: str = "auto",
     dtype=None,
-    device="cpu",
+    device="cuda",
     keep_dropped: bool = False,
     nan_dropped: bool = True,
     backend: str = "auto",
@@ -150,7 +150,8 @@ def shoot_rays(
 
     Reference signature (pygenray ``launch_rays.py:11-23``) plus: ``dx``
     (nominal step, m), ``interp`` (profile backend), ``dtype`` and
-    ``device`` (where an ``OceanEnvironment2D``'s tensors are built; an
+    ``device`` (where an ``OceanEnvironment2D``'s tensors are built: the
+    CUDA device unless the caller asks for another, e.g. ``"cpu"``; an
     ``EnvData`` keeps its own), ``backend`` (see ``SolverSettings``) and
     ``keep_dropped`` (keep dead rays in the fan with their death
     diagnostics instead of dropping them).  Rays that turn vertical, leave
@@ -243,7 +244,7 @@ def shoot_ray(
     dx: float = None,
     interp: str = "auto",
     dtype=None,
-    device="cpu",
+    device="cuda",
 ) -> Ray | None:
     """Integrate a single ray; returns a ``Ray`` or None if it was dropped.
 

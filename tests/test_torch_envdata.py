@@ -55,7 +55,7 @@ def _tables(kind, seed=7):
 def env_pair(kind, dtype="float64"):
     args, kw = _tables(kind)
     je = jp.make_env_data(*args, dtype=jnp.dtype(dtype), **kw)
-    te = tp.make_env_data(*args, dtype=resolve_dtype(dtype), **kw)
+    te = tp.make_env_data(*args, dtype=resolve_dtype(dtype), device="cpu", **kw)
     return je, te
 
 
@@ -96,7 +96,7 @@ def test_env_from_reference_round_trips(kind):
     # and back out of the port the same way
     fields_t = {f: getattr(te, f).numpy() for f in DATA_FIELDS}
     meta_t = {m: getattr(te, m) for m in META_FIELDS}
-    assert_env_equal(je, env_from_reference(fields_t, meta_t, dtype="float64"))
+    assert_env_equal(je, env_from_reference(fields_t, meta_t, device="cpu", dtype="float64"))
     with pytest.raises(ValueError):
         env_from_reference({}, meta)
 
@@ -157,9 +157,9 @@ def test_ocean_environment_env_data_matches():
     for flat in (True, False):
         for mirrored in (False, True):
             je = jo.env_data(flatearth=flat, mirrored=mirrored, dtype=jnp.float64)
-            te = to.env_data(flatearth=flat, mirrored=mirrored, dtype=F64)
+            te = to.env_data(flatearth=flat, mirrored=mirrored, dtype=F64, device="cpu")
             assert_env_equal(je, te)
-    assert to.env_data(dtype="float64") is to.env_data(dtype=F64)  # cached
+    assert to.env_data(dtype="float64", device="cpu") is to.env_data(dtype=F64, device="cpu")  # cached
     dep = np.linspace(0, 5000, 11)
     np.testing.assert_array_equal(jp.eflat(dep, 35.0)[0], tp.eflat(dep, 35.0)[0])
     np.testing.assert_allclose(jp.eflatinv(dep, 35.0)[0], tp.eflatinv(dep, 35.0)[0],

@@ -80,7 +80,7 @@ CASES = {
 def env_pair(case):
     args, kw = _tables(case)
     je = jp.make_env_data(*args, dtype=jnp.float64, **kw)
-    te = tp.make_env_data(*args, dtype=torch.float64, **kw)
+    te = tp.make_env_data(*args, dtype=torch.float64, device="cpu", **kw)
     return je, te
 
 
@@ -140,7 +140,7 @@ def test_trace_impl_matches_jax_f64(case):
 def test_kahan_flag_changes_f32_arithmetic():
     """kahan=False must change float32 travel times (the flag is honored)."""
     args, _ = _tables("cheb_horner")
-    te = tp.make_env_data(*args, dtype=torch.float32)
+    te = tp.make_env_data(*args, dtype=torch.float32, device="cpu")
     h, sps, nseg = _plan(0.0, 20e3, 5, 250.0)
     p0 = torch.as_tensor(np.sin(np.radians(np.linspace(-12, 12, 16))) / 1500.0)
     on = _trace_impl(te, 1300.0, p0, (0.0, 20e3, h, sps, nseg), SolverSettings(dx=250.0))
@@ -171,8 +171,8 @@ def test_trace_dispatch_on_cpu():
     runs the kernel's plain version; "kernel" raises on what the kernel does
     not cover; unknown backends and x1 <= x0 raise."""
     args, _ = _tables("cheb_horner")
-    te32 = tp.make_env_data(*args, dtype=torch.float32)
-    te64 = tp.make_env_data(*args, dtype=torch.float64)
+    te32 = tp.make_env_data(*args, dtype=torch.float32, device="cpu")
+    te64 = tp.make_env_data(*args, dtype=torch.float64, device="cpu")
     p0 = np.sin(np.radians(np.linspace(-10, 10, 8))) / 1500.0
     outs = [trace(te32, 1300.0, p0, 0.0, 10e3, 3, SolverSettings(dx=500.0, backend=b))
             for b in BACKENDS]

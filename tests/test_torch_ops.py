@@ -201,7 +201,7 @@ def test_lru_cache_evicts_least_recent():
 def test_env_struct_key_tracks_structure_not_values():
     from pygenray_tpu_torch.models import munk_env
 
-    env = munk_env(r_max=20e3, nr=4, nz=128).env_data(flatearth=False, dtype=torch.float64)
+    env = munk_env(r_max=20e3, nr=4, nz=128).env_data(flatearth=False, dtype=torch.float64, device="cpu")
     same_shape = dataclasses.replace(env, c=env.c + 1.0)
     assert env_struct_key(env) == env_struct_key(same_shape)
     assert env_struct_key(env) != env_struct_key(env.to(dtype=torch.float32))

@@ -36,7 +36,7 @@ TABLE = dict(interp="table", dtype="float64")
 def golden_fan():
     env = t_munk_env(r_max=50e3, nr=30, nz=400)
     return tp.shoot_rays(1300.0, 0.0, [-a for a in ANGLES], 50e3, 50, env,
-                         rtol=1e-9, flatearth=False, **TABLE)
+                         rtol=1e-9, flatearth=False, device="cpu", **TABLE)
 
 
 def test_regression_vs_reference_fixture(golden_fan):
@@ -93,7 +93,7 @@ def test_shoot_rays_matches_jax(backwards):
     angles = np.linspace(-20, 20, 40)
     kw = dict(flatearth=False, dx=250.0, dtype="float64")
     jf = jp.shoot_rays(1300.0, src, angles, rcv, 6, je, **kw)
-    tf = tp.shoot_rays(1300.0, src, angles, rcv, 6, te, **kw)
+    tf = tp.shoot_rays(1300.0, src, angles, rcv, 6, te, device="cpu", **kw)
     assert_fans_equal(jf, tf)
     assert tf.n_botts.sum() > 0 and tf.ts.shape == (40, 6)
     if backwards:
@@ -108,13 +108,13 @@ def test_keep_dropped_matches_jax(nan_dropped):
     kw = dict(flatearth=False, dx=300.0, dtype="float64", keep_dropped=True,
               nan_dropped=nan_dropped)
     jf = jp.shoot_rays(1000.0, 0.0, angles, 20e3, 5, jenv, **kw)
-    tf = tp.shoot_rays(1000.0, 0.0, angles, 20e3, 5, tenv, **kw)
+    tf = tp.shoot_rays(1000.0, 0.0, angles, 20e3, 5, tenv, device="cpu", **kw)
     assert_fans_equal(jf, tf)
     assert not tf.alive.all() and tf.alive.any()
     assert np.isnan(tf.ts).any() == nan_dropped
     # default: dropped rays leave the fan
     dropped = tp.shoot_rays(1000.0, 0.0, angles, 20e3, 5, tenv, flatearth=False, dx=300.0,
-                            dtype="float64")
+                            dtype="float64", device="cpu")
     assert len(dropped.ts) == int(tf.alive.sum())
 
 
@@ -126,20 +126,20 @@ def test_per_ray_source_depths_and_single_ray_match_jax(capsys):
     kw = dict(flatearth=False, dx=300.0, dtype="float64", keep_dropped=True)
     jf = jp.shoot_rays(depths, 0.0, angles, 15e3, 4, jenv, debug=True, **kw)
     j_err = capsys.readouterr().err
-    tf = tp.shoot_rays(depths, 0.0, angles, 15e3, 4, tenv, debug=True, **kw)
+    tf = tp.shoot_rays(depths, 0.0, angles, 15e3, 4, tenv, debug=True, device="cpu", **kw)
     t_err = capsys.readouterr().err
     assert_fans_equal(jf, tf)
     assert t_err == j_err and "terminated:" in t_err
     # shoot_ray is the same trace for one ray (ODE convention, negated angle)
     ray = tp.shoot_ray(900.0, 0.0, 6.0, 15e3, 4, tenv, flatearth=False, dx=300.0,
-                       dtype="float64")
+                       dtype="float64", device="cpu")
     np.testing.assert_array_equal(ray.r, tf.rs[2])
     np.testing.assert_allclose(ray.t, jf.ts[2], rtol=0, atol=1e-9)
     np.testing.assert_allclose(ray.z, jf.zs[2], rtol=0, atol=1e-6)
     assert (ray.n_bottom, ray.n_surface, ray.launch_angle) == (
         jf.n_botts[2], jf.n_surfs[2], -6.0)
     assert tp.shoot_ray(1300.0, 0.0, -90.0, 15e3, 4, tenv, flatearth=False, dx=300.0,
-                        dtype="float64") is None
+                        dtype="float64", device="cpu") is None
 
 
 def test_rayfan_npz_round_trip(tmp_path, golden_fan):

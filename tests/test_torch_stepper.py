@@ -25,6 +25,7 @@ from pygenray_tpu.integrate import SolverSettings as JSettings, _use_cheb as j_u
 from pygenray_tpu.ops.pallas_stepper import (
     _launch_consts as j_launch_consts,
     pallas_supported,
+    tangent_supported as j_tangent_supported,
     trace_pallas,
 )
 from pygenray_tpu_torch.integrate import SolverSettings, _plan, _trace_impl, trace
@@ -32,7 +33,9 @@ from pygenray_tpu_torch.ops import _build, stepper
 from pygenray_tpu_torch.ops.stepper import (
     _launch_consts,
     kernel_supported,
+    tangent_supported,
     trace_kernel,
+    trace_tangent_kernel,
 )
 
 
@@ -62,7 +65,7 @@ def _tables(kind):
 def env_pair(kind, dtype="float32", no_pow=False):
     args, kw = _tables(kind)
     je = jp.make_env_data(*args, dtype=jnp.dtype(dtype), **kw)
-    te = tp.make_env_data(*args, dtype=getattr(torch, dtype), **kw)
+    te = tp.make_env_data(*args, dtype=getattr(torch, dtype), device="cpu", **kw)
     if no_pow:
         je = dataclasses.replace(je, poly_ok=False)
         te = dataclasses.replace(te, poly_ok=False)
@@ -124,6 +127,28 @@ def test_trace_kernel_cpu_is_the_torch_op_loop():
         assert torch.equal(getattr(a, f), getattr(b, f)) and torch.equal(getattr(a, f), getattr(c, f))
 
 
+def test_trace_kernel_cpu_range_dependent_is_the_torch_op_loop():
+    """The range-dependent fan (per-step station rows) on CPU tensors: the
+    wrapper runs the plain version, which reads the same rows the kernel
+    is given (``integrate._step_data``)."""
+    _, te = env_pair("rd")
+    assert te.range_dependent
+    s = SolverSettings(dx=500.0, kahan=False)
+    assert kernel_supported(te, s)
+    h, sps, nseg = _plan(0.0, 10e3, 3, 500.0)
+    geom = (0.0, 10e3, h, sps, nseg)
+    p0 = np.sin(np.radians(np.linspace(-15, 15, 10))) / 1500.0
+    n0 = stepper.LAUNCHES
+    a = trace_kernel(te, 1300.0, p0, geom, s)
+    assert stepper.LAUNCHES == n0
+    b = _trace_impl(te, 1300.0, p0, geom, s)
+    for f in ("ts", "zs", "ps", "n_surf", "n_bott", "death_code", "alive_save", "rs"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    inp = stepper._inputs(te, 1300.0, p0, geom, s)
+    assert len(inp.rows) == 4 and all(r.shape == (sps * nseg, te.c_cheb.shape[-1])
+                                      for r in inp.rows)
+
+
 def _settings(**kw):
     return JSettings(**kw), SolverSettings(**kw)
 
@@ -136,7 +161,7 @@ def _settings(**kw):
         ("flat", "float32", {"kahan": False, "terminate_backwards": False}, True),
         ("flat", "float64", {}, False),  # f64: the torch-op loop
         ("flat", "float32", {"interp": "table"}, False),
-        ("rd", "float32", {}, False),  # range-dependent: a later kernel
+        ("rd", "float32", {}, True),  # range-dependent: per-step rows (B1c)
         ("seg", "float32", {}, False),  # segment mode: a later kernel
         ("table", "float32", {}, False),
         ("spline", "float32", {}, False),  # spline bottom angle
@@ -144,17 +169,21 @@ def _settings(**kw):
 )
 def test_kernel_supported_truth_table(kind, dtype, skw, expect):
     """``kernel_supported`` is ``pallas_supported`` narrowed to the spectral
-    range-independent variant."""
+    variants (range-independent or range-dependent); ``tangent_supported``
+    is the JAX package's, which admits the same configurations."""
     je, te = env_pair(kind, dtype)
     js, ts = _settings(**skw)
     use_cheb = j_use_cheb(je, js)
-    narrowed = pallas_supported(je, js, use_cheb) and use_cheb and not je.range_dependent
+    narrowed = pallas_supported(je, js, use_cheb) and use_cheb
     assert kernel_supported(te, ts) == narrowed == expect
+    assert tangent_supported(te, ts) == j_tangent_supported(je, js, use_cheb) == expect
     if not expect:
         with pytest.raises(ValueError):
             trace_kernel(te, 1300.0, np.zeros(2), (0.0, 1e3, 500.0, 1, 2), ts)
         with pytest.raises(ValueError, match="unsupported"):
             trace(te, 1300.0, np.zeros(2), 0.0, 1e3, 2, dataclasses.replace(ts, backend="kernel"))
+        with pytest.raises(ValueError):
+            trace_tangent_kernel(te, 1300.0, np.zeros(2), 1.0, (0.0, 1e3, 500.0, 1, 2), ts)
 
 
 def test_kernel_supported_needs_the_fit_it_is_asked_for():
@@ -195,12 +224,16 @@ def test_build_flags_and_source_hash(monkeypatch):
     flags = _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert not any("fast_math" in f for f in flags)
-    src = (_build.CSRC / "trace_fan.cu").read_text()
-    assert 'extern "C" int trace_fan_f32(' in src
-    path = _build.library_path()
-    assert path.parent == _build.BUILD_DIR and path == _build.library_path()
-    monkeypatch.setattr(_build, "NVCC_FLAGS", flags + ("-lineinfo",))
-    assert _build.library_path() != path
-    # one ctypes argument type per C parameter
-    params = src.split('extern "C" int trace_fan_f32(')[1].split(")")[0].split(",")
-    assert len(params) == len(stepper._ARGTYPES)
+    assert _build.sources() == ["trace_fan", "trace_tangent"]
+    for name in _build.sources():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        entry = f'extern "C" int {name}_f32('
+        assert entry in src
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path == _build.library_path(name)
+        monkeypatch.setattr(_build, "NVCC_FLAGS", flags + ("-lineinfo",))
+        assert _build.library_path(name) != path
+        monkeypatch.setattr(_build, "NVCC_FLAGS", flags)
+        # one ctypes argument type per C parameter
+        params = src.split(entry)[1].split(")")[0].split(",")
+        assert len(params) == len(stepper._ARGTYPES[f"{name}_f32"])
