@@ -8,15 +8,25 @@ Run from the repository root on a machine with one CUDA card:
 It builds the port's CUDA kernels from ``pygenray_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel) and holds each against its plain PyTorch
 version on the card: the forward fan kernel (``trace_fan.cu``,
-range-independent and range-dependent) and the forward-tangent kernel
-(``trace_tangent.cu``).  It drives the main paths through them: the
+range-independent and range-dependent), the forward-tangent kernel
+(``trace_tangent.cu``) and the save-grid forward-tangent kernel
+(``trace_tangent_save.cu``).  It drives the main paths through them: the
 headline 102,400-ray Munk fan (``shoot_rays``), BASELINE config 1's
-range-dependent fan at full width, and the eigenray search
+range-dependent fan at full width, the eigenray search
 (``find_eigenrays`` / ``find_eigenrays_batch``) on BASELINE configs 2 and 3
 and three more cases, held against the JAX package's answers
 (``tests/fixtures/eigen_jax_f32.npz``, written on a CPU by
-``tests/fixtures/make_eigen_fixture.py``) and the scipy oracle fixtures.
-It times kernels, plain versions and eigenray latencies.  Each phase prints
+``tests/fixtures/make_eigen_fixture.py``) and the scipy oracle fixtures,
+and the receiver side: autograd through ``trace``, ``arrival_amplitudes``
+over the headline fan, ``transmission_loss_field`` and ``impulse_response``
+/ ``array_response`` at the parameters of ``examples/tl_demo.py`` and
+``examples/impulse_response_demo.py``, held against spherical spreading,
+central differences and the JAX package's answers
+(``tests/fixtures/receiver_jax_f32.npz``, written by
+``tests/fixtures/make_receiver_fixture.py``).  It times kernels, plain
+versions, eigenray latencies and the receiver-side calls, and holds the
+save-grid tangent kernel to its plain version once more at each full shape
+those calls gave it.  Each phase prints
 one line; the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero without that line.  It needs no network and
 imports no JAX.
@@ -31,6 +41,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -39,10 +50,12 @@ FIXTURES = ROOT / "tests" / "fixtures"
 ORACLE = FIXTURES / "bench_oracle_100km.npz"
 ORACLE_RD = FIXTURES / "bench_oracle_rd.npz"
 EIGEN_JAX = FIXTURES / "eigen_jax_f32.npz"
+RECEIVER_JAX = FIXTURES / "receiver_jax_f32.npz"
 
 # the headline fan (BASELINE config 0; the JAX package's bench.py)
 R_MAX = 100e3
 NUM_RAYS = 102_400
+N_EQ = 8192  # rays of the kernel-vs-plain fans
 ANGLE_SPAN = 15.0
 SRC_DEPTH = 1300.0
 NUM_SAVE = 50
@@ -67,6 +80,25 @@ TOLS = {"ts": (1e-5, 67.0), "zs": (2e-3, 5000.0), "ps": (2.5e-10, 1.0 / 1500.0)}
 TAN_TOLS = {"T": (1e-5, 67.0), "z": (2e-3, 5000.0), "p": (2.5e-10, 1.0 / 1500.0),
             "dT": (4e-3, 1e4), "dz": (32.0, 1e8), "dp": (5e-7, 1.0)}
 TAN_FIELDS = ("T", "z", "p", "dT", "dz", "dp")
+KERNEL_NAMES = ("trace_fan_f32", "trace_tangent_f32", "trace_tangent_save_f32")
+# The save-grid tangent kernel takes a seed (dp0, dz0).  A unit depth seed
+# gives tangents about 1e-8 of a unit p0 seed's (dz/dz0 ~ 1 against dz/dp0 ~
+# 1e8 m per (s/m), dT/dz0 ~ 1e-4 s/m against 1e4), so the tangent bounds and
+# magnitudes of TAN_TOLS are scaled by max|dp0| + Z0_SEED_SCALE * max|dz0|.
+Z0_SEED_SCALE = 1e-8
+# the receiver side vs the JAX package (float32 on a CPU, its tangent by
+# jax.jvp through its scan): both sum travel time without compensation, in
+# different orders, so times differ by a few float32 ulp of 67 s a step over
+# 490 steps (6e-5 s between the port on a CPU and the fixture), depths by a
+# few mm, amplitudes by < 1e-4 relative away from caustics; the bounds are
+# about three times what the port on a CPU shows.
+RCV_TIME_S = 2e-4
+RCV_DEPTH_M = 0.05
+RCV_AMP_REL = 1e-3
+RCV_TL_INC_DB = 1e-3
+# coherent pressure, relative to the field's largest: the phase omega * t
+# moves by 2 pi 75 Hz * 6e-5 s = 0.03 rad (CPU: 1.6e-3 of the largest)
+RCV_COH_REL = 1e-2
 # eigenrays vs the JAX package (tests/test_eigenray_newton.py's bounds)
 EIG_ANGLE_DEG = 5e-3
 EIG_TIME_S = 1e-5
@@ -324,6 +356,454 @@ def eigen_case(torch, pt, dev, stepper, case, envs):
     return ers, launches
 
 
+# ---------------------------------------------------------------------------
+# the save-grid tangent kernel and the receiver side
+# ---------------------------------------------------------------------------
+
+
+def on_card(cx, a):
+    return cx.torch.as_tensor(a, dtype=cx.torch.float32, device=cx.dev)
+
+
+def save_tangent_bound(res, env, sps):
+    """Bound of one save-grid tangent launch: the ray-steps its rays lived
+    at DUAL_FACTOR times the forward operations, 16 B in and six save grids
+    plus 16 B out per ray."""
+    B, S = res.ts.shape
+    ray_steps = float((res.alive_save.sum(1) - 1).clamp(min=0).sum()) * sps
+    nbytes = B * (16 + 24 * S + 16) + step_input_bytes(env, (S - 1) * sps)
+    return bound(ray_steps * step_ops(env) * DUAL_FACTOR, nbytes)
+
+
+def compare_save_tangent(name, seed_scale, out_k, out_p):
+    """Hold the save-grid tangent kernel to its plain version: the primal
+    save grids, counters, death codes and alive_save as ``compare`` does,
+    the three tangent grids at every save point within TAN_TOLS scaled by
+    the seed (see Z0_SEED_SCALE).  A value that is the same infinity or NaN
+    in both agrees; their count is reported.  Returns the max absolute
+    errors at live save points."""
+    import torch
+
+    res_k, tan_k = out_k
+    res_p, tan_p = out_p
+    errs = compare(name, res_k, res_p)
+    live = res_p.alive_save
+    ratios, nonfinite = {}, 0
+    for f, a, b in zip(("dT", "dz", "dp"), tan_k, tan_p):
+        tol, mag = TAN_TOLS[f]
+        d, ratios[f] = diff_ratio(a, b, tol * seed_scale, mag * seed_scale)
+        errs[f] = float(d[live].max()) if bool(live.any()) else 0.0
+        nonfinite += int((live & ~torch.isfinite(b)).sum())
+    emit("save_tangent_vs_plain", case=name, seed_scale=seed_scale,
+         live_save_points_with_nonfinite_tangent=nonfinite,
+         max_abs_err_live={f: errs[f] for f in ("dT", "dz", "dp")}, max_err_over_bound=ratios)
+    for f, r in ratios.items():
+        require(r <= 1.0, f"{name}: tangent grid {f} differs by {r:.3g} times its bound")
+    return errs
+
+
+def save_tangent_phase(cx):
+    """The save-grid tangent kernel against its plain version on every
+    tangent fan with three seeds (all at full width; the depth and mixed
+    seeds over half the range), and in lockstep with the other kernels:
+    its last row is the final-state tangent kernel's output, its primal the
+    fan kernel's save grid without Kahan.  Returns (worst errors, plain ms
+    of the first case)."""
+    from pygenray_tpu_torch.integrate import _trace_tangent_save_impl
+
+    torch, stepper = cx.torch, cx.stepper
+    errs_all, plain_ms = [], None
+    for name, env, ang, z0, x1, s in cx.tan_cases:
+        p0, z0 = on_card(cx, launch_p0(cx.pt, env, ang)), on_card(cx, z0)
+        mixed = on_card(cx, np.linspace(0.5, 1.5, len(ang)))
+        for label, dp0, dz0, scale in (("dp0", 1.0, 0.0, 1.0),
+                                       ("dz0", 0.0, 1.0, Z0_SEED_SCALE),
+                                       ("mixed", mixed, -0.7, 1.5 + 0.7 * Z0_SEED_SCALE)):
+            # the unit p0 seed over the whole range; the other two seeds over
+            # its first half (the plain version takes ~25 ms a step on the
+            # card, whatever the fan's width)
+            part = 1 if label == "dp0" else 2
+            h, sps, nseg = cx.plan(0.0, x1 / part, NUM_SAVE // part, s.dx)
+            geom = (0.0, x1 / part, h, sps, nseg)
+            out_k = stepper.trace_tangent_save_kernel(env, z0, p0, dp0, geom, s, dz0=dz0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_p = _trace_tangent_save_impl(env, z0, p0, dp0, geom, s, dz0=dz0)
+            torch.cuda.synchronize()
+            if plain_ms is None:
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            errs_all.append(compare_save_tangent(f"{name}/{label}", scale, out_k, out_p))
+            if label != "dp0":
+                continue
+            # lockstep: the last row is the final-state tangent kernel's
+            # output on the same plan, the primal the fan kernel's save grid
+            res_k, tan_k = out_k
+            out_t = stepper.trace_tangent_kernel(env, z0, p0, 1.0, geom, s)
+            last = (res_k.ts[:, -1], res_k.zs[:, -1], res_k.ps[:, -1],
+                    tan_k[0][:, -1], tan_k[1][:, -1], tan_k[2][:, -1])
+            ratios = {f: diff_ratio(a, b, *TAN_TOLS[f])[1]
+                      for f, a, b in zip(TAN_FIELDS, last, out_t[:6])}
+            res_f = stepper.trace_kernel(env, z0, p0, geom, dataclasses.replace(s, kahan=False))
+            ratios_f = {f: diff_ratio(getattr(res_k, f), getattr(res_f, f), *TOLS[f])[1]
+                        for f in TOLS}
+            same = bool(torch.equal(out_t[6], res_k.n_surf) and torch.equal(out_t[7], res_k.n_bott)
+                        and torch.equal(out_t[8], res_k.death_code)
+                        and torch.equal(res_f.alive_save, res_k.alive_save))
+            emit("save_tangent_lockstep", case=name, counters_equal=same,
+                 last_row_vs_tangent_kernel=ratios, primal_vs_fan_kahan_off=ratios_f)
+            require(same, f"{name}: the three kernels disagree on counters, death codes or "
+                    "alive_save")
+            for f, r in {**ratios, **ratios_f}.items():
+                require(r <= 1.0, f"{name}: save-grid tangent {f} off its sibling kernel by "
+                        f"{r:.3g} bounds")
+        if name == "seamount_deaths":
+            codes = set(out_p[0].death_code.tolist())
+            require({1, 2, 3} <= codes, f"save tangent {name}: death codes {sorted(codes)} "
+                    "lack 1, 2 or 3")
+    keys = ("ts", "zs", "ps", "dT", "dz", "dp")
+    return {f: max(e[f] for e in errs_all) for f in keys}, plain_ms
+
+
+def autograd_phase(cx):
+    """torch.autograd.grad of the summed final travel time over p0 and over
+    z0 on the 8,192-ray fan: one save-grid tangent launch each, no fan
+    launch; equal to the plain version's tangent, and within central
+    differences of the fan kernel (float32: the median over rays whose
+    bounce counts the shifted shots share, relative to the largest
+    tangent; the p0 step 1e-6 s/m moves T by ~1e-2 s against 1e-5 s of
+    rounding, median bound 1e-3; the z0 step 5 m moves T by ~4e-4 s, median
+    bound 5e-2)."""
+    from pygenray_tpu_torch.integrate import _trace_tangent_save_impl
+
+    torch, stepper, pt, env, s = cx.torch, cx.stepper, cx.pt, cx.env_h, cx.settings
+    h, sps, nseg = cx.plan(0.0, R_MAX, NUM_SAVE, DX)
+    geom = (0.0, R_MAX, h, sps, nseg)
+    s_off = dataclasses.replace(s, kahan=False)
+    p0 = on_card(cx, launch_p0(pt, env, cx.eq_angles))
+    z0 = torch.full_like(p0, SRC_DEPTH)
+    out = {}
+    for wrt, eps, med_bound in (("p0", 1e-6, 1e-3), ("z0", 5.0, 5e-2)):
+        leaf = (p0 if wrt == "p0" else z0).clone().requires_grad_(True)
+        args = (z0, leaf) if wrt == "p0" else (leaf, p0)
+        stepper.LAUNCHES = stepper.TANGENT_SAVE_LAUNCHES = 0
+        res = pt.trace(env, *args, 0.0, R_MAX, NUM_SAVE, s)
+        (g,) = torch.autograd.grad(res.ts[:, -1].sum(), leaf)
+        torch.cuda.synchronize()
+        launches = (stepper.LAUNCHES, stepper.TANGENT_SAVE_LAUNCHES)
+        seed = (1.0, 0.0) if wrt == "p0" else (0.0, 1.0)
+        _, (dts, _, _) = _trace_tangent_save_impl(env, z0, p0, seed[0], geom, s, dz0=seed[1])
+        scale = 1.0 if wrt == "p0" else Z0_SEED_SCALE
+        tol, mag = TAN_TOLS["dT"]
+        _, ratio = diff_ratio(g, dts[:, -1], tol * scale, mag * scale)
+        shots = []
+        for sign in (1.0, -1.0):
+            a = (z0, p0 + sign * eps) if wrt == "p0" else (z0 + sign * eps, p0)
+            shots.append(stepper.trace_kernel(env, *a, geom, s_off))
+        hi, lo = shots
+        same = ((hi.n_surf == lo.n_surf) & (hi.n_bott == lo.n_bott) & (hi.n_surf == res.n_surf)
+                & (hi.n_bott == res.n_bott) & hi.alive & lo.alive)
+        fd = (hi.ts[:, -1] - lo.ts[:, -1]) / (2 * eps)
+        rel = ((fd - g).abs() / g[same].abs().max())[same]
+        out[wrt] = {"launches": {"trace_fan_f32": launches[0],
+                                 "trace_tangent_save_f32": launches[1]},
+                    "vs_plain_over_bound": ratio, "rays_compared": int(same.sum()),
+                    "fd_rel_err_median": float(rel.median()), "fd_rel_err_max": float(rel.max()),
+                    "fd_median_bound": med_bound}
+        require(launches == (0, 1), f"grad over {wrt}: launches {launches}, expected (0, 1)")
+        require(ratio <= 1.0, f"grad over {wrt} off the plain tangent by {ratio:.3g} bounds")
+        require(int(same.sum()) >= 0.8 * len(p0), f"grad over {wrt}: too few comparable rays")
+        require(float(rel.median()) <= med_bound,
+                f"grad over {wrt}: median error vs central differences {float(rel.median()):.3g}")
+    emit("autograd", rays=len(p0), **out)
+
+
+def timed_call(cx, fn):
+    """``(result, wall seconds, launches of (fan, tangent, save-grid tangent)
+    kernels)`` of one synchronized call, the counts set to 0 just before."""
+    st = cx.stepper
+    cx.torch.cuda.synchronize()
+    st.LAUNCHES = st.TANGENT_LAUNCHES = st.TANGENT_SAVE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    cx.torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, (st.LAUNCHES, st.TANGENT_LAUNCHES,
+                                           st.TANGENT_SAVE_LAUNCHES)
+
+
+def receiver_paths_phase(cx):
+    """The receiver side at full width through the user API, launch counts
+    asserted: ``arrival_amplitudes`` over the headline fan,
+    ``transmission_loss_field`` at examples/tl_demo.py's parameters,
+    ``impulse_response`` and ``array_response`` at
+    examples/impulse_response_demo.py's.  Returns what the times phase and
+    the kernels line need."""
+    from pygenray_tpu_torch.models import munk_env
+
+    pt = cx.pt
+    angles = np.linspace(-ANGLE_SPAN, ANGLE_SPAN, NUM_RAYS)
+    arr, arr_s, n = timed_call(cx, lambda: pt.arrival_amplitudes(
+        SRC_DEPTH, 0.0, angles, R_MAX, cx.env_h, num_save=NUM_SAVE, dx=DX, flatearth=False))
+    launches_main = n[2]
+    ok = arr.alive
+    emit("arrival_amplitudes_headline", rays=NUM_RAYS, saves=NUM_SAVE, alive=int(ok.sum()),
+         seconds=arr_s, launches=dict(zip(KERNEL_NAMES, n)),
+         kmah_histogram=np.bincount(arr.kmah[ok]).tolist(),
+         tl_db_median=float(np.median(arr.tl_db[ok])))
+    require(n == (0, 0, 1), f"arrival_amplitudes launched {n}, expected one save-grid tangent")
+    require(ok.sum() >= 0.999 * NUM_RAYS, f"arrival_amplitudes kept {int(ok.sum())} rays")
+    require(np.isfinite(arr.amplitude[ok]).all() and (arr.amplitude[ok] > 0).all()
+            and np.isfinite(arr.travel_time[ok]).all() and np.isnan(arr.amplitude[~ok]).all(),
+            "arrival_amplitudes: live rays need finite positive amplitudes, dead rays NaN")
+
+    # examples/tl_demo.py at its full parameters
+    tl_env = munk_env(r_max=120e3, nr=50, nz=1200)
+    tl_angles, tl_depths = np.linspace(-13.0, 13.0, 2001), np.linspace(0.0, 5000.0, 251)
+    fld, tl_s, n = timed_call(cx, lambda: pt.transmission_loss_field(
+        1000.0, 0.0, tl_angles, 120e3, tl_env, frequency=75.0, depths=tl_depths, num_range=301,
+        flatearth=False))
+    on_axis = fld.tl_incoherent[np.argmin(np.abs(tl_depths - 1000.0))]
+    finite = np.isfinite(on_axis)
+    q = max(int(finite.sum()) // 4, 1)
+    demo = {"axis_insonified": float(finite.mean()),
+            "tl_grows_with_range": bool(on_axis[finite][-q:].mean() > on_axis[finite][:q].mean()),
+            "coherent_cells": int(np.isfinite(fld.tl_coherent).sum())}
+    emit("transmission_loss_field_demo", rays=len(tl_angles), depths=len(tl_depths), ranges=300,
+         seconds=tl_s, launches=dict(zip(KERNEL_NAMES, n)),
+         insonified_cells=int(np.isfinite(fld.tl_incoherent).sum()), demo_assertions=demo)
+    require(n == (0, 0, 1), f"transmission_loss_field launched {n}, expected one save-grid "
+            "tangent")
+    require(fld.tl_incoherent.shape == (251, 300) and fld.tl_coherent.shape == (251, 300)
+            and np.isfinite(fld.tl_incoherent).mean() > 0.5 and demo["coherent_cells"] > 0,
+            "transmission_loss_field: wrong shape or an empty field")
+
+    # examples/impulse_response_demo.py at its full parameters; the Newton
+    # iterations are read off a separate eigenray solve of the same case
+    ir_env = munk_env(r_max=100e3, nr=50, nz=1200)
+    kw = dict(num_rays=2048, max_angle=14.0, num_save=400, flatearth=False)
+    fan = pt.shoot_rays(1300.0, 0.0, np.linspace(-14.0, 14.0, 2048), 100e3, 400, ir_env,
+                        flatearth=False)
+    zd = np.linspace(1100.0, 1500.0, 16)
+    iters = {}
+    for label, rds in (("impulse_response", [1000.0]), ("array_response", zd)):
+        er = pt.find_eigenrays(fan, np.asarray(rds), 1300.0, 0.0, 100e3, 400, ir_env,
+                               flatearth=False)
+        iters[label] = int(er.diagnostics["iterations"].max(initial=0))
+    resp, ir_s, n_ir = timed_call(cx, lambda: pt.impulse_response(
+        1300.0, 0.0, 1000.0, 100e3, ir_env, center_frequency=75.0, bandwidth=37.5, **kw))
+    ar, ar_s, n_ar = timed_call(cx, lambda: pt.array_response(
+        1300.0, 0.0, zd, 100e3, ir_env, center_frequency=75.0, bandwidth=37.5, **kw))
+    rows = int((np.abs(ar.waveform) > 0).any(axis=1).sum())
+    peak = float(resp.envelope().max())
+    emit("impulse_response_demo", arrivals=int(resp.arrivals.alive.sum()), samples=len(resp.t),
+         peak_envelope=peak, seconds=ir_s, launches=dict(zip(KERNEL_NAMES, n_ir)),
+         newton_iterations=iters["impulse_response"])
+    emit("array_response_demo", depths=len(zd), depths_with_arrivals=rows,
+         arrivals=int(sum(r.arrivals.alive.sum() for r in ar.responses)), samples=len(ar.t),
+         seconds=ar_s, launches=dict(zip(KERNEL_NAMES, n_ar)),
+         newton_iterations=iters["array_response"])
+    require(n_ir == (2, iters["impulse_response"], 1),
+            f"impulse_response launched {n_ir}, expected (2, {iters['impulse_response']}, 1)")
+    require(n_ar == (2, iters["array_response"], 1),
+            f"array_response launched {n_ar}, expected (2, {iters['array_response']}, 1)")
+    require(np.isfinite(resp.waveform).all() and peak > 0 and resp.arrivals.alive.all(),
+            "impulse_response: non-finite or empty waveform")
+    require(np.isfinite(ar.waveform).all() and rows == len(zd),
+            f"array_response: {rows} of {len(zd)} depths received arrivals")
+    return types.SimpleNamespace(
+        arr_s=arr_s, tl_s=tl_s, ir_s=ir_s, ar_s=ar_s, tl_env=tl_env, tl_angles=tl_angles,
+        eig_angles=np.concatenate([r.arrivals.theta0 for r in ar.responses]), ir_env=ir_env,
+        launches_main=launches_main)
+
+
+def receiver_physics_phase(cx):
+    """Physics that needs no reference, in float32 on the card
+    (tests/test_amplitudes.py's cases): spherical spreading A = 1/s in an
+    unbounded isovelocity medium within 1e-3 relative, a surface bounce's
+    phase pi, and the spreading Jacobian behind the amplitudes against
+    central differences of two fan-kernel shots (launch angle step 0.01
+    degrees: the final depth moves by metres against millimetres of
+    float32 rounding) within 1e-2 relative."""
+    torch, pt = cx.torch, cx.pt
+    z = np.linspace(0.0, 20000.0, 64)
+    r = np.linspace(0.0, 300e3, 8)
+    iso = pt.make_env_data(np.full((8, 64), 1500.0), r, z, np.full(8, 20000.0), r,
+                           dtype=torch.float32, device=cx.dev)
+    angles = np.array([-10.0, -5.0, -1.0, 2.0, 8.0])
+    arr = pt.arrival_amplitudes(10000.0, 0.0, angles, 20e3, iso, num_save=64)
+    slant = 20e3 / np.cos(np.radians(angles))
+    err_iso = float(np.max(np.abs(arr.amplitude * slant - 1.0)))
+    bounce = pt.arrival_amplitudes(100.0, 0.0, np.array([20.0]), 10e3, iso, num_save=64)
+    err_bounce = float(abs(bounce.amplitude[0] * 10e3 / np.cos(np.radians(20.0)) - 1.0))
+
+    env, R = cx.env_h, 50e3
+    th = np.array([-8.0, -4.0, 0.5, 3.0, 7.0])
+    a = pt.arrival_amplitudes(SRC_DEPTH, 0.0, th, R, env, num_save=128, dx=DX, flatearth=False)
+    c0 = float(pt.munk_ssp(np.asarray([SRC_DEPTH]))[0])
+    from pygenray_tpu_torch.envdata import host_profile_tables
+
+    cr = pt.bilinear_np(np.full_like(a.z_r, R), -a.z_r, *host_profile_tables(env))
+    jac_ad = (cr * np.cos(np.radians(th))) / (c0 * R * np.cos(np.radians(a.theta_r))
+                                               * a.amplitude ** 2)
+    d = 1e-2
+    shot = lambda t: pt.shoot_rays(SRC_DEPTH, 0.0, t, R, 128, env, dx=DX, flatearth=False).zs[:, -1]
+    jac_fd = np.abs(shot(th + d) - shot(th - d)) / (2 * np.radians(d))
+    err_fd = float(np.max(np.abs(jac_ad / jac_fd - 1.0)))
+    emit("receiver_physics", spherical_spreading_rel_err=err_iso, bound=1e-3,
+         surface_bounce={"n_surf": int(bounce.n_surf[0]), "kmah": int(bounce.kmah[0]),
+                         "phase": float(bounce.phase[0]), "amplitude_rel_err": err_bounce},
+         jacobian_vs_central_differences_rel_err=err_fd, fd_bound=1e-2)
+    require(arr.alive.all() and (arr.kmah == 0).all() and (arr.n_surf == 0).all()
+            and err_iso <= 1e-3, f"spherical spreading off by {err_iso:.3g}")
+    require(int(bounce.n_surf[0]) == 1 and int(bounce.kmah[0]) == 0
+            and abs(float(bounce.phase[0]) - np.pi) < 1e-6 and err_bounce <= 1e-3,
+            "surface bounce: wrong phase or amplitude")
+    require(a.alive.all() and err_fd <= 1e-2,
+            f"spreading Jacobian off central differences by {err_fd:.3g}")
+
+
+def receiver_vs_jax_phase(cx):
+    """The port's arrivals and transmission-loss field against the JAX
+    package's (tests/fixtures/receiver_jax_f32.npz; bounds RCV_*).
+    Amplitudes are held away from caustics: where the JAX package's
+    spreading Jacobian is not within a factor 100 of vanishing next to the
+    fan's median."""
+    pt = cx.pt
+    fx = np.load(RECEIVER_JAX)
+    P = json.loads(str(fx["params"]))
+    lin = lambda k: np.linspace(P[k][0], P[k][1], int(P[k][2]))
+    arr = pt.arrival_amplitudes(P["src"], 0.0, lin("arr_angles"), P["r_max"], cx.env_h,
+                                num_save=P["arr_num_save"], dx=P["dx"], flatearth=False)
+    exact = ("kmah", "n_surf", "n_bott", "alive", "death_code")
+    same = {f: bool(np.array_equal(getattr(arr, f), fx[f"arr/{f}"])) for f in exact}
+    amp_ref = fx["arr/amplitude"]
+    away = amp_ref < 100.0 * np.nanmedian(amp_ref)
+    errs = {
+        "amplitude_rel": float(np.nanmax(np.abs(arr.amplitude / amp_ref - 1.0)[away])),
+        "phase": float(np.max(np.abs(arr.phase - fx["arr/phase"]))),
+        "travel_time_s": float(np.max(np.abs(arr.travel_time - fx["arr/travel_time"]))),
+        "z_r_m": float(np.max(np.abs(arr.z_r - fx["arr/z_r"]))),
+    }
+    fld = pt.transmission_loss_field(
+        P["src"], 0.0, lin("tl_angles"), P["r_max"], cx.env_h, frequency=P["tl_frequency"],
+        depths=lin("tl_depths"), num_range=P["tl_num_range"], dx=P["dx"], flatearth=False)
+    inc_ref, coh_ref = fx["tl/tl_incoherent"].astype(float), fx["tl/tl_coherent"].astype(float)
+    masks = bool(np.array_equal(np.isnan(fld.tl_incoherent), np.isnan(inc_ref))
+                 and np.array_equal(np.isnan(fld.tl_coherent), np.isnan(coh_ref)))
+    press = lambda tl: 10.0 ** (-tl / 20.0)
+    errs["tl_incoherent_db"] = float(np.nanmax(np.abs(fld.tl_incoherent - inc_ref)))
+    errs["tl_coherent_pressure_rel"] = float(
+        np.nanmax(np.abs(press(fld.tl_coherent) - press(coh_ref))) / np.nanmax(press(coh_ref)))
+    emit("receiver_vs_jax", arrivals=len(arr), away_from_caustics=int(away.sum()),
+         exact_fields_equal=same, nan_masks_equal=masks, max_err=errs,
+         bounds={"amplitude_rel": RCV_AMP_REL, "travel_time_s": RCV_TIME_S, "z_r_m": RCV_DEPTH_M,
+                 "tl_incoherent_db": RCV_TL_INC_DB, "tl_coherent_pressure_rel": RCV_COH_REL})
+    require(all(same.values()), f"arrivals differ from the JAX package's in {same}")
+    require(masks, "the TL fields' empty cells differ from the JAX package's")
+    require(errs["amplitude_rel"] <= RCV_AMP_REL and errs["phase"] == 0.0
+            and errs["travel_time_s"] <= RCV_TIME_S and errs["z_r_m"] <= RCV_DEPTH_M
+            and errs["tl_incoherent_db"] <= RCV_TL_INC_DB
+            and errs["tl_coherent_pressure_rel"] <= RCV_COH_REL,
+            f"receiver side off the JAX package: {errs}")
+
+
+def save_tangent_times_phase(cx, rcv, plain_8192_ms):
+    """The save-grid tangent kernel at the shapes the receiver side gives
+    it: the headline fan's (102,400 rays, 490 steps, 50 saves), the TL
+    demo's (2,001 rays, 2,400 steps of 50 m, 301 saves) and the array
+    response's (its eigenrays, 2,000 steps of 50 m, 400 saves), each held
+    to the plain version at that full shape as ``save_tangent_phase`` holds
+    the 8,192-ray fans, with device times (CUDA events, wrapper included),
+    bounds, the plain version's wall time, and the host share of each
+    full-width call.  Returns (the rows by shape, the worst errors)."""
+    from pygenray_tpu_torch.envdata import host_profile_tables
+    from pygenray_tpu_torch.integrate import _trace_tangent_save_impl
+
+    torch, pt, stepper, s = cx.torch, cx.pt, cx.stepper, cx.settings
+    rows, errs_all = {}, []
+
+    def shape(label, env, src, angles, x1, num_save, st, plain=True):
+        h, sps, nseg = cx.plan(0.0, x1, num_save, st.dx)
+        geom = (0.0, x1, h, sps, nseg)
+        c_src = float(pt.bilinear_np(0.0, src, *host_profile_tables(env)))
+        p0 = on_card(cx, np.sin(np.radians(-angles)) / c_src)
+        run = lambda: stepper.trace_tangent_save_kernel(env, src, p0, 1.0, geom, st)
+        out_k = run()
+        ms = events_ms(run)
+        b_ms, b_by = save_tangent_bound(out_k[0], env, sps)
+        rows[label] = {"rays": len(angles), "steps": sps * nseg, "saves": num_save,
+                       "kernel_event_ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        if plain:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_p = _trace_tangent_save_impl(env, src, p0, 1.0, geom, st)
+            torch.cuda.synchronize()
+            rows[label]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            errs_all.append(compare_save_tangent(f"{label}_shape", 1.0, out_k, out_p))
+
+    shape("headline", cx.env_h, SRC_DEPTH, np.linspace(-ANGLE_SPAN, ANGLE_SPAN, NUM_RAYS),
+          R_MAX, NUM_SAVE, s)
+    shape("fan8192", cx.env_h, SRC_DEPTH, cx.eq_angles, R_MAX, NUM_SAVE, s, plain=False)
+    rows["fan8192"]["plain_ms"] = plain_8192_ms  # compared in save_tangent_phase
+    s50 = pt.SolverSettings(dx=50.0)  # the demos' default step
+    shape("tl_demo", rcv.tl_env.env_data(flatearth=False), 1000.0, rcv.tl_angles, 120e3, 301, s50)
+    shape("array_response_eigenrays", rcv.ir_env.env_data(flatearth=False), 1300.0,
+          rcv.eig_angles, 100e3, 400, s50)
+    # the host share of each full-width call: its wall time less the device
+    # time of its one save-grid tangent launch
+    calls = {"arrival_amplitudes_headline": (rcv.arr_s, rows["headline"]["kernel_event_ms"]),
+             "transmission_loss_field_demo": (rcv.tl_s, rows["tl_demo"]["kernel_event_ms"])}
+    emit("times_save_tangent", card=cx.smi, **rows,
+         calls={k: {"wall_ms": w * 1e3, "save_tangent_ms": d, "host_and_copies_ms": w * 1e3 - d}
+                for k, (w, d) in calls.items()},
+         impulse_response_wall_ms=rcv.ir_s * 1e3, array_response_wall_ms=rcv.ar_s * 1e3)
+    return rows, {f: max(e[f] for e in errs_all) for f in errs_all[0]}
+
+
+def build_context(torch, pt, dev):
+    """The environments, fans and settings the kernel comparisons share."""
+    from pygenray_tpu_torch.integrate import _plan
+
+    settings = pt.SolverSettings(dx=DX)
+    env_h = headline_env(torch, pt, dev)
+    require(env_h.has_cheb and env_h.poly_ok and env_h.bangle_mode == "const"
+            and not env_h.range_dependent, "headline env is not the Horner variant")
+    env_c = dataclasses.replace(env_h, poly_ok=False)
+    # curved bottom: the Chebyshev bottom-angle series
+    env_b = headline_env(torch, pt, dev,
+                         4400.0 + 300.0 * np.sin(np.linspace(0.0, R_MAX, NR) / 30e3))
+    require(env_b.bangle_mode == "cheb", "curved-bottom env has no Chebyshev bottom angle")
+    # a 26-degree seamount flank over 20 km (one period of a cosine, which
+    # the bottom-angle series fits): steep rays reflect off it backwards
+    r_s = np.linspace(0.0, 20e3, NR)
+    env_s = pt.make_env_data(np.outer(np.ones(NR), pt.munk_ssp(np.linspace(0.0, 6000.0, NZ))),
+                             r_s, np.linspace(0.0, 6000.0, NZ),
+                             3200.0 + 1600.0 * np.cos(2 * np.pi * r_s / 20e3), r_s,
+                             dtype=torch.float32, device=dev)
+    require(env_s.bangle_mode == "cheb", "seamount env has no Chebyshev bottom angle")
+    eq_angles = np.linspace(-18.0, 18.0, N_EQ)
+    # steep fan, vertical rays (death code 1), backwards reflections (code
+    # 3) and a source below the domain (code 2), as in the CPU tests
+    death_angles = np.concatenate([np.linspace(-60.0, 60.0, N_EQ - 4),
+                                   [-90.0, -89.999, 89.999, 0.0]])
+    z0_death = np.full(N_EQ, SRC_DEPTH)
+    z0_death[-1] = 6500.0
+    env_rd = rd_env(torch, pt, dev)
+    require(env_rd.range_dependent, "config 1 env is not range-dependent")
+    s_rd = pt.SolverSettings(dx=100.0)  # bench.py's config 1 step
+    # the tangent kernels' fans: phase 3's plus BASELINE config 1's field
+    tan_cases = (
+        ("horner", env_h, eq_angles, SRC_DEPTH, R_MAX, settings),
+        ("clenshaw", env_c, eq_angles, SRC_DEPTH, R_MAX, settings),
+        ("horner_curved_bottom", env_b, eq_angles, SRC_DEPTH, R_MAX, settings),
+        ("seamount_deaths", env_s, death_angles, z0_death, 20e3, settings),
+        ("range_dependent_config1", env_rd, eq_angles, SRC_DEPTH, R_MAX, s_rd),
+    )
+    return types.SimpleNamespace(
+        torch=torch, pt=pt, dev=dev, plan=_plan, settings=settings, env_h=env_h, env_c=env_c,
+        env_b=env_b, env_s=env_s, env_rd=env_rd, s_rd=s_rd, eq_angles=eq_angles,
+        death_angles=death_angles, z0_death=z0_death, tan_cases=tan_cases)
+
+
 def main() -> int:
     import torch
 
@@ -360,31 +840,10 @@ def main() -> int:
          ptxas=ptxas)
 
     # ---- phase 3: kernel vs plain on the card -----------------------------
-    settings = pt.SolverSettings(dx=DX)
-    env_h = headline_env(torch, pt, dev)
-    require(env_h.has_cheb and env_h.poly_ok and env_h.bangle_mode == "const"
-            and not env_h.range_dependent, "headline env is not the Horner variant")
-    env_c = dataclasses.replace(env_h, poly_ok=False)
-    # curved bottom: the Chebyshev bottom-angle series
-    env_b = headline_env(torch, pt, dev,
-                         4400.0 + 300.0 * np.sin(np.linspace(0.0, R_MAX, NR) / 30e3))
-    require(env_b.bangle_mode == "cheb", "curved-bottom env has no Chebyshev bottom angle")
-    # a 26-degree seamount flank over 20 km (one period of a cosine, which
-    # the bottom-angle series fits): steep rays reflect off it backwards
-    r_s = np.linspace(0.0, 20e3, NR)
-    env_s = pt.make_env_data(np.outer(np.ones(NR), pt.munk_ssp(np.linspace(0.0, 6000.0, NZ))),
-                             r_s, np.linspace(0.0, 6000.0, NZ),
-                             3200.0 + 1600.0 * np.cos(2 * np.pi * r_s / 20e3), r_s,
-                             dtype=torch.float32, device=dev)
-    require(env_s.bangle_mode == "cheb", "seamount env has no Chebyshev bottom angle")
-    n_eq = 8192
-    eq_angles = np.linspace(-18.0, 18.0, n_eq)
-    # steep fan, vertical rays (death code 1), backwards reflections (code
-    # 3) and a source below the domain (code 2), as in the CPU tests
-    death_angles = np.concatenate([np.linspace(-60.0, 60.0, n_eq - 4),
-                                   [-90.0, -89.999, 89.999, 0.0]])
-    z0_death = np.full(n_eq, SRC_DEPTH)
-    z0_death[-1] = 6500.0
+    cx = build_context(torch, pt, dev)
+    cx.stepper, cx.smi = stepper, smi
+    settings, env_h, env_c, env_b, env_s = cx.settings, cx.env_h, cx.env_c, cx.env_b, cx.env_s
+    eq_angles, death_angles, z0_death = cx.eq_angles, cx.death_angles, cx.z0_death
     s_off = dataclasses.replace(settings, kahan=False, terminate_backwards=False)
     cases = (
         ("horner", env_h, eq_angles, SRC_DEPTH, R_MAX, settings),
@@ -485,17 +944,9 @@ def main() -> int:
     # ---- phase 6: the tangent kernel vs its plain version ------------------
     # final state only, on the eigenray solver's plan (2 saves); the same
     # fans as phase 3 plus BASELINE config 1's range-dependent field
-    env_rd = rd_env(torch, pt, dev)
-    require(env_rd.range_dependent and stepper.tangent_supported(env_rd, settings),
-            "config 1 env is not range-dependent spectral")
-    s_rd = pt.SolverSettings(dx=100.0)  # bench.py's config 1 step
-    tan_cases = (
-        ("horner", env_h, eq_angles, SRC_DEPTH, R_MAX, settings),
-        ("clenshaw", env_c, eq_angles, SRC_DEPTH, R_MAX, settings),
-        ("horner_curved_bottom", env_b, eq_angles, SRC_DEPTH, R_MAX, settings),
-        ("seamount_deaths", env_s, death_angles, z0_death, 20e3, settings),
-        ("range_dependent_config1", env_rd, eq_angles, SRC_DEPTH, R_MAX, s_rd),
-    )
+    env_rd, s_rd, tan_cases = cx.env_rd, cx.s_rd, cx.tan_cases
+    require(stepper.tangent_supported(env_rd, settings),
+            "config 1 env is not covered by the tangent kernels")
     tan_errs, tan_plain_ms = [], {}
     for name, env, ang, z0, x1, s in tan_cases:
         h2, sps2, nseg2 = _plan(0.0, x1, 2, s.dx)
@@ -617,6 +1068,15 @@ def main() -> int:
                       "bound_by": rd_bound_by},
          eigenray_latency=latency)
 
+    # ---- phases 10-15: the save-grid tangent kernel and the receiver side ----
+    sv_err, sv_plain_8192_ms = save_tangent_phase(cx)
+    autograd_phase(cx)
+    rcv = receiver_paths_phase(cx)
+    receiver_physics_phase(cx)
+    receiver_vs_jax_phase(cx)
+    sv, sv_err_full = save_tangent_times_phase(cx, rcv, sv_plain_8192_ms)
+    sv_err = {f: max(e, sv_err_full[f]) for f, e in sv_err.items()}
+
     err = worst(errs_all)
     launches_tan = eig["timefront"][1][1]
     print(smi, flush=True)
@@ -657,6 +1117,31 @@ def main() -> int:
         "ms_fan8192": tan_e_ms,
         "plain_ms_fan8192": tan_plain_ms["horner"],
         "bound_ms_fan8192": tan_e_bound_ms,
+    }, {
+        "name": "trace_tangent_save_f32",
+        "route": "cuda",
+        "source": "pygenray_tpu_torch/csrc/trace_tangent_save.cu",
+        "replaces": "pygenray_tpu/ops/pallas_stepper.py:1194",
+        "launches": rcv.launches_main,  # the headline fan's arrival_amplitudes
+        "max_abs_err": sv_err["ts"],  # travel time [s]; the rest below
+        "max_abs_err_zs": sv_err["zs"],
+        "max_abs_err_dT": sv_err["dT"],
+        "max_abs_err_dz": sv_err["dz"],
+        "max_abs_err_dp": sv_err["dp"],
+        "ms": sv["headline"]["kernel_event_ms"],
+        "plain_ms": sv["headline"]["plain_ms"],
+        "bound_ms": sv["headline"]["bound_ms"],
+        "bound_by": sv["headline"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a ray tangent
+        "ms_fan8192": sv["fan8192"]["kernel_event_ms"],
+        "plain_ms_fan8192": sv["fan8192"]["plain_ms"],
+        "bound_ms_fan8192": sv["fan8192"]["bound_ms"],
+        "ms_tl_demo": sv["tl_demo"]["kernel_event_ms"],
+        "plain_ms_tl_demo": sv["tl_demo"]["plain_ms"],
+        "bound_ms_tl_demo": sv["tl_demo"]["bound_ms"],
+        "ms_array_response_eigenrays": sv["array_response_eigenrays"]["kernel_event_ms"],
+        "plain_ms_array_response_eigenrays": sv["array_response_eigenrays"]["plain_ms"],
+        "bound_ms_array_response_eigenrays": sv["array_response_eigenrays"]["bound_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

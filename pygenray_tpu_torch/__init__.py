@@ -2,9 +2,12 @@
 
 The PyTorch port of ``pygenray_tpu``: the same public API, conventions and
 numbers.  On a CUDA device the forward ray-fan trace runs as a hand-written
-CUDA kernel (``csrc/trace_fan.cu``) and the eigenray search's Newton
-iterations as a forward-tangent kernel (``csrc/trace_tangent.cu``); on the
-CPU both run as torch-op step loops.  The entry points build their tensors
+CUDA kernel (``csrc/trace_fan.cu``), the eigenray search's Newton
+iterations as a forward-tangent kernel (``csrc/trace_tangent.cu``), and
+derivatives over the launch parameters (autograd through ``trace``, arrival
+amplitudes, impulse responses, transmission-loss fields) as a save-grid
+forward-tangent kernel (``csrc/trace_tangent_save.cu``); on the CPU all
+three run as torch-op step loops.  The entry points build their tensors
 on the CUDA device unless the caller passes ``device="cpu"``.  This package
 imports torch, numpy and scipy, never jax.
 
@@ -23,6 +26,18 @@ from .envdata import EnvData, env_from_reference, make_env_data, with_spectral
 from .integrate import DEATH_CODES, SolverSettings, TraceResult, trace
 from .shoot import shoot_ray, shoot_rays, settings_for
 from .eigenrays import find_eigenrays, find_eigenrays_batch
+from .amplitudes import Arrivals, arrival_amplitudes
+from .response import (
+    ArrayResponse,
+    Response,
+    array_response,
+    impulse_response,
+    received_waveform,
+    synthesize_response,
+    thorp_attenuation,
+)
+from .signals import msequence_code, msequence_signal
+from .tlfield import TLField, transmission_loss_field
 from .ray_objects import EigenRays, Ray, RayFan
 from .ops.host import (
     bilinear_np,
@@ -62,6 +77,19 @@ __all__ = [
     "settings_for",
     "find_eigenrays",
     "find_eigenrays_batch",
+    "Arrivals",
+    "arrival_amplitudes",
+    "Response",
+    "ArrayResponse",
+    "synthesize_response",
+    "impulse_response",
+    "array_response",
+    "received_waveform",
+    "thorp_attenuation",
+    "msequence_code",
+    "msequence_signal",
+    "TLField",
+    "transmission_loss_field",
     "Ray",
     "RayFan",
     "EigenRays",

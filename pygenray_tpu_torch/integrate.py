@@ -575,6 +575,53 @@ def _trace_impl(env: EnvData, z0, p0, geom, settings: SolverSettings) -> TraceRe
     )
 
 
+def _tangent_loop(env: EnvData, z0, p0, dp0, dz0, geom, settings: SolverSettings, save: bool):
+    """The forward trace's step run on Duals (``ops.dual``) seeded with
+    ``(dp0, dz0)``, without Kahan compensation.  Returns the final ``(T, z,
+    p)`` Duals, ``n_surf``, ``n_bott``, ``death`` and, with ``save``, the
+    list of ``(T, z, p, alive)`` at row 0 and after every segment (else
+    None).  One loop for both tangent traces, so the save grid's last row
+    is the final-state trace bit for bit."""
+    if not _use_cheb(env, settings) or env.bangle_mode not in ("const", "cheb"):
+        raise ValueError("the forward-tangent trace needs a spectral profile and a "
+                         "constant or Chebyshev bottom angle")
+    dtype, device = env.dtype, env.device
+    z0, p0 = _as_batch(env, z0, p0)
+    dp0 = torch.as_tensor(dp0, dtype=dtype, device=device).expand(p0.shape)
+    B = p0.shape[0]
+    st = _Stepper(env, geom, settings)
+
+    zero = torch.zeros(B, dtype=dtype, device=device)
+    if dz0 is None:
+        dz0 = zero
+    else:
+        dz0 = torch.as_tensor(dz0, dtype=dtype, device=device).expand(p0.shape)
+    p = D.Dual(p0, dp0)
+    z = D.Dual(z0, dz0)
+    kT, kz, kp, _ = st.rhs(st.sd.prof0, z, p)
+    alive = st.alive0(z0)
+    death = torch.where(alive, 0, 2).to(torch.int32)
+    T = D.Dual(zero, zero)
+    n_surf = torch.zeros(B, dtype=torch.int32, device=device)
+    n_bott = torch.zeros(B, dtype=torch.int32, device=device)
+    saves = [(T, z, p, alive)] if save else None
+    for seg in range(st.nseg):
+        for k in range(seg * st.sps, (seg + 1) * st.sps):
+            dT_tot, dz_tot, p_new, surf, bott, cross, back_dead = st.step(
+                k, alive, z, p, kT, kz, kp)
+            T = T + D.where(alive, dT_tot, 0.0)
+            z = z + D.where(alive, dz_tot, 0.0)
+            p = D.where(alive, p_new, p)
+            n_surf = n_surf + (cross & surf & alive).to(torch.int32)
+            n_bott = n_bott + (cross & bott & alive).to(torch.int32)
+            kT, kz, kp, death, newly = st.end_of_step(k, alive, z, p, kT, kz, kp,
+                                                      back_dead, death)
+            alive = alive & ~newly
+        if save:
+            saves.append((T, z, p, alive))
+    return T, z, p, n_surf, n_bott, death, saves
+
+
 def _trace_tangent_impl(env: EnvData, z0, p0, dp0, geom, settings: SolverSettings):
     """Final-state trace plus one forward tangent seeded by ``dp0`` (the
     tangent of ``p0``; the source depth's is 0).  Returns ``(T, z, p, dT,
@@ -589,36 +636,193 @@ def _trace_tangent_impl(env: EnvData, z0, p0, dp0, geom, settings: SolverSetting
     (Horner or Clenshaw; range-independent or range-dependent) with a
     constant or Chebyshev bottom angle, float32 or float64.
     """
-    if not _use_cheb(env, settings) or env.bangle_mode not in ("const", "cheb"):
-        raise ValueError("the forward-tangent trace needs a spectral profile and a "
-                         "constant or Chebyshev bottom angle")
-    dtype, device = env.dtype, env.device
-    z0, p0 = _as_batch(env, z0, p0)
-    dp0 = torch.as_tensor(dp0, dtype=dtype, device=device).expand(p0.shape)
-    B = p0.shape[0]
-    st = _Stepper(env, geom, settings)
-
-    zero = torch.zeros(B, dtype=dtype, device=device)
-    p = D.Dual(p0, dp0)
-    z = D.Dual(z0, zero)
-    kT, kz, kp, _ = st.rhs(st.sd.prof0, z, p)
-    alive = st.alive0(z0)
-    death = torch.where(alive, 0, 2).to(torch.int32)
-    T = D.Dual(zero, zero)
-    n_surf = torch.zeros(B, dtype=torch.int32, device=device)
-    n_bott = torch.zeros(B, dtype=torch.int32, device=device)
-    for k in range(st.sps * st.nseg):
-        dT_tot, dz_tot, p_new, surf, bott, cross, back_dead = st.step(
-            k, alive, z, p, kT, kz, kp)
-        T = T + D.where(alive, dT_tot, 0.0)
-        z = z + D.where(alive, dz_tot, 0.0)
-        p = D.where(alive, p_new, p)
-        n_surf = n_surf + (cross & surf & alive).to(torch.int32)
-        n_bott = n_bott + (cross & bott & alive).to(torch.int32)
-        kT, kz, kp, death, newly = st.end_of_step(k, alive, z, p, kT, kz, kp,
-                                                  back_dead, death)
-        alive = alive & ~newly
+    T, z, p, n_surf, n_bott, death, _ = _tangent_loop(env, z0, p0, dp0, None, geom, settings,
+                                                      save=False)
     return T.v, z.v, p.v, T.t, z.t, p.t, n_surf, n_bott, death
+
+
+def _trace_tangent_save_impl(env: EnvData, z0, p0, dp0, geom, settings: SolverSettings,
+                             dz0=None):
+    """Save-grid trace plus one forward tangent seeded by ``(dp0, dz0)``,
+    the tangents of the launch parameter and of the source depth (``dz0``
+    defaults to 0).  Returns ``(TraceResult, (dts, dzs, dps))``, the tangent
+    arrays (B, nseg+1), in the ODE convention, as the JAX package's
+    ``trace_pallas_tangent_save`` does.
+
+    The plain version of the save-grid tangent kernel (``ops/stepper.py``,
+    ``csrc/trace_tangent_save.cu``): the loop of ``_trace_tangent_impl``
+    with the state and its tangent stored at the launch point and after
+    every segment.  No Kahan compensation, so the primal is ``_trace_impl``
+    with ``kahan=False`` and the last row is ``_trace_tangent_impl`` (for
+    ``dz0 = 0``), both bit for bit.  A dead ray's later rows hold its frozen
+    state and tangent.  Same coverage as ``_trace_tangent_impl``.
+    """
+    x0, x1, _, _, nseg = geom
+    _, _, _, n_surf, n_bott, death, saves = _tangent_loop(env, z0, p0, dp0, dz0, geom, settings,
+                                                          save=True)
+    Ts, zs, ps, alives = zip(*saves)
+    grid = lambda duals, part: torch.stack([getattr(d, part) for d in duals], dim=1)
+    res = TraceResult(
+        rs=_save_ranges(x0, x1, nseg, Ts[0].v),
+        ts=grid(Ts, "v"),
+        zs=grid(zs, "v"),
+        ps=grid(ps, "v"),
+        n_bott=n_bott,
+        n_surf=n_surf,
+        alive=alives[-1],
+        alive_save=torch.stack(alives, dim=1),
+        death_code=death,
+    )
+    return res, (grid(Ts, "t"), grid(zs, "t"), grid(ps, "t"))
+
+
+# ---------------------------------------------------------------------------
+# autograd over the launch parameters: reverse and forward mode through
+# trace() ride the save-grid tangent trace instead of differentiating the
+# torch-op loop step by step
+# ---------------------------------------------------------------------------
+
+
+def _rides_tangent_trace(env, settings) -> bool:
+    """True when a derivative over the launch parameters can ride the
+    save-grid tangent trace: a spectral profile with a constant or
+    Chebyshev bottom angle, and not ``backend="ops"``."""
+    return (settings.backend != "ops" and _use_cheb(env, settings)
+            and env.bangle_mode in ("const", "cheb"))
+
+
+def _tangent_grids(env, z0, p0, dp0, dz0, geom, settings):
+    """One save-grid tangent trace: the kernel's wrapper where it covers
+    the configuration (float32), else the plain Dual loop (float64, more
+    series terms than the kernel holds); ``backend="kernel"`` raises there,
+    as ``trace`` does without differentiation."""
+    from .ops.stepper import tangent_supported, trace_tangent_save_kernel
+
+    if tangent_supported(env, settings):
+        return trace_tangent_save_kernel(env, z0, p0, dp0, geom, settings, dz0=dz0)
+    if settings.backend == "kernel":
+        raise ValueError("CUDA kernel backend unsupported for this configuration")
+    return _trace_tangent_save_impl(env, z0, p0, dp0, geom, settings, dz0=dz0)
+
+
+class _TraceLaunchAD(torch.autograd.Function):
+    """``trace`` with derivatives over the launch parameters ``p0`` and
+    ``z0``, both (B,).  Counterpart of the JAX package's ``_traced_pallas``
+    and its ``custom_jvp`` rule.
+
+    Each ray depends only on its own ``p0`` and ``z0``, so one save-grid
+    tangent trace with the unit seed ``dp0 = 1, dz0 = 0`` gives the whole
+    diagonal ``d(ts, zs, ps)/dp0``, and one with ``dp0 = 0, dz0 = 1`` the
+    diagonal over ``z0``.  The forward pass launches one trace per
+    direction asked for (``need_z``, ``need_p``) and keeps the diagonals;
+    the tangent trace returns the primal too, so no forward-fan launch is
+    added.  That primal is the uncompensated one (no Kahan), as everywhere
+    under AD in the JAX package.  User tangents and cotangents enter
+    linearly: ``d_out = Dp * dp0 + Dz * dz0`` (``jvp``) and ``grad_p0 =
+    sum over save points of g_ts*Dt + g_zs*Dz + g_ps*Dp`` (``backward``).
+    """
+
+    @staticmethod
+    def forward(z0, p0, env, geom, settings, need_z, need_p):
+        if not (need_z or need_p):
+            raise ValueError("_TraceLaunchAD needs a direction to differentiate over")
+        res = None
+        grids = []
+        one, zero = torch.ones_like(p0), torch.zeros_like(p0)
+        for need, dp0, dz0 in ((need_p, one, zero), (need_z, zero, one)):
+            if need:
+                r, tang = _tangent_grids(env, z0, p0, dp0, dz0, geom, settings)
+                res = r if res is None else res
+                grids.extend(tang)
+            else:
+                grids.extend(p0.new_zeros(0) for _ in range(3))
+        return (res.ts, res.zs, res.ps, res.rs, res.n_bott, res.n_surf, res.alive,
+                res.alive_save, res.death_code, *grids)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.need = (inputs[5], inputs[6])
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(*output[3:])
+        ctx.save_for_backward(*output[9:])
+        ctx.save_for_forward(*output[9:])
+
+    @staticmethod
+    def vmap(info, in_dims, z0, p0, env, geom, settings, need_z, need_p):
+        """``torch.func.vmap`` over the launch tensors: rays are
+        independent, so the mapped dimension joins the ray dimension of one
+        launch.  (``jacfwd`` maps only the tangents, which enter ``jvp``
+        linearly, and so stays one launch too.)"""
+        N, B = info.batch_size, p0.shape[-1]
+
+        def rays(x, dim):
+            x = x.expand(N, B) if dim is None else x.movedim(dim, 0)
+            return x.reshape(N * B)
+
+        out = _TraceLaunchAD.apply(rays(z0, in_dims[0]), rays(p0, in_dims[1]), env, geom,
+                                   settings, need_z, need_p)
+        per_ray = [o.shape[:1] == (N * B,) for o in out]  # not rs, not an empty placeholder
+        return (tuple(o.reshape(N, B, *o.shape[1:]) if m else o for o, m in zip(out, per_ray)),
+                tuple(0 if m else None for m in per_ray))
+
+    @staticmethod
+    def _diagonals(ctx, saved):
+        need_z, need_p = ctx.need
+        return (saved[0:3] if need_p else None), (saved[3:6] if need_z else None)
+
+    @staticmethod
+    def backward(ctx, g_ts, g_zs, g_ps, *_):
+        d_p, d_z = _TraceLaunchAD._diagonals(ctx, ctx.saved_tensors)
+
+        def pull(diag):
+            terms = [g * d for g, d in zip((g_ts, g_zs, g_ps), diag or ()) if g is not None]
+            return sum(terms).sum(dim=1) if terms else None
+
+        return pull(d_z), pull(d_p), None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dz0, dp0, *_):
+        d_p, d_z = _TraceLaunchAD._diagonals(ctx, ctx.saved_tensors)
+        outs = [None, None, None]
+        for diag, seed in ((d_p, dp0), (d_z, dz0)):
+            if diag is None or seed is None:
+                continue
+            col = seed[:, None]
+            for i in range(3):
+                term = diag[i] * col
+                outs[i] = term if outs[i] is None else outs[i] + term
+        return (*outs, *(None,) * 12)
+
+
+def _wants_derivative(x) -> bool:
+    """A tensor the caller differentiates over: it requires grad, carries a
+    forward-mode tangent, or is wrapped by a ``torch.func`` transform
+    (``torch._C._functorch.is_functorch_wrapped_tensor`` is private: checked
+    with torch 2.11 and 2.13)."""
+    if not isinstance(x, torch.Tensor):
+        return False
+    if x.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(x):
+        return True
+    return torch.autograd.forward_ad.unpack_dual(x).tangent is not None
+
+
+def _env_wants_derivative(env: EnvData) -> bool:
+    return any(_wants_derivative(getattr(env, f.name)) for f in dataclasses.fields(env))
+
+
+def _trace_ad(env, z0, p0, geom, settings, need_z, need_p, need_env) -> TraceResult:
+    """``trace`` under differentiation (see ``trace``'s docstring)."""
+    if need_env or not _rides_tangent_trace(env, settings):
+        # table or segment profile, spline bottom angle, a gradient on the
+        # environment: plain autograd through the torch-op loop
+        if settings.backend == "kernel":
+            raise ValueError("CUDA kernel backend unsupported for this derivative")
+        return _trace_impl(env, z0, p0, geom, dataclasses.replace(settings, kahan=False))
+    z0b, p0b = _as_batch(env, z0, p0)
+    out = _TraceLaunchAD.apply(z0b, p0b, env, geom, settings, need_z, need_p)
+    ts, zs, ps, rs, n_bott, n_surf, alive, alive_save, death = out[:9]
+    return TraceResult(rs=rs, ts=ts, zs=zs, ps=ps, n_bott=n_bott, n_surf=n_surf, alive=alive,
+                       alive_save=alive_save, death_code=death)
 
 
 def trace(
@@ -643,6 +847,18 @@ def trace(
     ``kernel_supported(env, settings)`` holds; otherwise the torch-op loop
     runs.  ``backend="kernel"`` raises when the kernel does not cover the
     configuration; ``backend="ops"`` always takes the torch-op loop.
+
+    Differentiation: when ``p0`` or ``z0`` is a tensor that requires grad,
+    carries a forward-mode tangent or is inside a ``torch.func`` transform,
+    the derivative over the launch parameters rides the save-grid tangent
+    trace (``_TraceLaunchAD``: the CUDA kernel of ``ops/stepper.py`` on a
+    CUDA environment in float32, the plain Dual loop otherwise), one trace
+    per direction, for spectral profiles with a constant or Chebyshev
+    bottom angle.  Other configurations, a derivative over a tensor of
+    ``env``, and ``backend="ops"`` differentiate the torch-op loop by plain
+    autograd; ``backend="kernel"`` raises on whatever the kernel does not
+    cover, as it does without differentiation.  Under differentiation the primal is the uncompensated one
+    (no Kahan), whatever ``settings.kahan`` says.
     """
     if not x1 > x0:
         raise ValueError("trace requires x1 > x0; mirror the environment for backwards shots")
@@ -650,6 +866,10 @@ def trace(
         raise ValueError(f"unknown backend {settings.backend!r}; use one of {BACKENDS}")
     h, sps, nseg = _plan(float(x0), float(x1), int(num_save), settings.dx)
     geom = (float(x0), float(x1), float(h), int(sps), int(nseg))
+
+    need = (_wants_derivative(z0), _wants_derivative(p0), _env_wants_derivative(env))
+    if any(need):
+        return _trace_ad(env, z0, p0, geom, settings, *need)
 
     if settings.backend != "ops":
         from .ops.stepper import kernel_supported, trace_kernel

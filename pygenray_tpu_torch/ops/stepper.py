@@ -1,6 +1,6 @@
 """The CUDA trace kernels: wrappers, support tests and plain versions.
 
-Counterparts of two Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``:
+Counterparts of three Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``:
 
 * ``trace_kernel`` — the forward mega-kernel (``trace_pallas``, :2733), in
   CUDA C++ ``csrc/trace_fan.cu``: one thread per ray integrates every step
@@ -9,15 +9,22 @@ Counterparts of two Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``:
   (``trace_pallas_tangent``, :1161), in ``csrc/trace_tangent.cu``: the same
   step on (value, tangent) pairs, final state only; the Newton engine of
   the eigenray search.
+* ``trace_tangent_save_kernel`` — the save-grid forward-tangent kernel
+  (``trace_pallas_tangent_save``, :1194), in ``csrc/trace_tangent_save.cu``:
+  the tangent kernel's step (shared through ``csrc/tangent_step.cuh``),
+  seeded in ``p0`` and ``z0``, with the state and its tangent written at
+  every save point; the engine of autograd through ``trace`` and of the
+  receiver side (amplitudes, impulse responses, transmission-loss fields).
 
-Both cover spectral profiles (Horner or Clenshaw; range-independent, or
+All cover spectral profiles (Horner or Clenshaw; range-independent, or
 range-dependent through per-step blended coefficient rows) with a constant
 or Chebyshev bottom angle, in float32.  The kernels are built by
 ``ops/_build.py``.  On a CUDA tensor a wrapper launches its kernel or
 raises on what it cannot run; it never falls back.  On a CPU tensor it
 runs the kernel's plain version, the torch-op loop whose arithmetic the
-kernel reproduces expression for expression: ``integrate._trace_impl`` and
-``integrate._trace_tangent_impl``.  Both read the per-step data of
+kernel reproduces expression for expression: ``integrate._trace_impl``,
+``integrate._trace_tangent_impl`` and ``integrate._trace_tangent_save_impl``.
+All read the per-step data of
 ``integrate._step_data``, so kernel and plain version see the same numbers.
 """
 
@@ -32,19 +39,20 @@ import torch
 
 from ..integrate import (
     TraceResult, _as_batch, _save_ranges, _step_data, _trace_impl, _trace_tangent_impl,
-    _use_cheb,
+    _trace_tangent_save_impl, _use_cheb,
 )
 from ..utils.cache import LRUCache, env_struct_key
 
 __all__ = [
     "kernel_supported", "tangent_supported", "trace_kernel", "trace_tangent_kernel",
-    "LAUNCHES", "TANGENT_LAUNCHES",
+    "trace_tangent_save_kernel", "LAUNCHES", "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES",
 ]
 
 # Numbers of kernel launches since import (or since a caller reset them):
 # a run can show that its main path went through each kernel.
 LAUNCHES = 0  # trace_fan_f32
 TANGENT_LAUNCHES = 0  # trace_tangent_f32
+TANGENT_SAVE_LAUNCHES = 0  # trace_tangent_save_f32
 
 MAX_K = 256  # coefficient rows held in shared memory (csrc TF_MAX_K)
 MAX_KB = 128  # bottom-angle series length (csrc TF_MAX_KB)
@@ -66,7 +74,8 @@ def kernel_supported(env, settings) -> bool:
 
 
 def tangent_supported(env, settings) -> bool:
-    """True when the CUDA forward-tangent kernel covers this configuration:
+    """True when the CUDA forward-tangent kernels (final-state and
+    save-grid) cover this configuration:
     what ``kernel_supported`` admits (counterpart of the JAX package's
     ``tangent_supported``, ``ops/pallas_stepper.py:722``).  The tangent
     kernel never compensates (no Kahan), whatever ``settings.kahan`` says."""
@@ -146,7 +155,7 @@ def _launch_setup(env, settings, geom):
 
 @dataclasses.dataclass(frozen=True)
 class _Inputs:
-    """The device operands both kernels read, in launch order."""
+    """The device operands every kernel reads, in launch order."""
 
     z0: torch.Tensor
     p0: torch.Tensor
@@ -203,6 +212,12 @@ _ARGTYPES = {
         + [_I] * 9  # B K Kb nsteps use_pow bangle_cheb term_back any_x_oob rd
         + _FLOATS + [_P]  # stream
     ),
+    "trace_tangent_save_f32": (
+        [_P] * 4 + _IN  # p0 dp0 z0 dz0, inputs
+        + [_P] * 10  # T z p dT dz dp (nseg+1, B), n_surf n_bott death dseg (B,)
+        + [_I] * 10  # B K Kb nseg sps use_pow bangle_cheb term_back any_x_oob rd
+        + _FLOATS + [_P]  # stream
+    ),
 }
 _FNS = {}
 
@@ -223,7 +238,7 @@ def _kernel_fn(name):
 
 def _launch(name, dev, pointers, ints, inp, geom):
     """Call a kernel's C entry point on the current stream of ``dev``:
-    its pointers, its own integers, then the arguments both kernels end
+    its pointers, its own integers, then the arguments every kernel ends
     with."""
     c = inp.consts
     x0, _, h, _, _ = geom
@@ -330,3 +345,53 @@ def trace_tangent_kernel(env, z0, p0, dp0, geom, settings):
                 inp, geom)
         TANGENT_LAUNCHES += 1
     return outs
+
+
+def trace_tangent_save_kernel(env, z0, p0, dp0, geom, settings, dz0=None):
+    """Save-grid trace with one forward tangent through the CUDA kernel:
+    returns ``(TraceResult, (dts, dzs, dps))``, the tangent arrays (B,
+    nseg+1), in the ODE convention (counterpart of
+    ``trace_pallas_tangent_save``).  ``(dp0, dz0)`` seeds the tangents of
+    ``p0`` and of the source depth (``dz0`` defaults to 0); no Kahan
+    compensation.  A dead ray's later rows hold its frozen state and
+    tangent.
+
+    On a CUDA environment this launches the kernel or raises; on a CPU
+    environment it runs the plain version, ``_trace_tangent_save_impl``.
+    """
+    global TANGENT_SAVE_LAUNCHES
+    if not tangent_supported(env, settings):
+        raise ValueError("configuration not covered by the CUDA save-grid tangent kernel")
+    dev = _check_device(env, "trace_tangent_save_kernel")
+    if dev.type == "cpu":
+        return _trace_tangent_save_impl(env, z0, p0, dp0, geom, settings, dz0=dz0)
+
+    x0, x1, _, sps, nseg = geom
+    inp = _inputs(env, z0, p0, geom, settings)
+    B = inp.p0.shape[0]
+    seed = lambda d: torch.as_tensor(0.0 if d is None else d, dtype=torch.float32,
+                                     device=dev).expand(B).contiguous()
+    dp0v, dz0v = seed(dp0), seed(dz0)
+    # (nseg+1, B): a warp writes 32 consecutive floats of one save row
+    grids = tuple(torch.empty((nseg + 1, B), dtype=torch.float32, device=dev) for _ in range(6))
+    n_surf, n_bott, death, dseg = (torch.empty(B, dtype=torch.int32, device=dev)
+                                   for _ in range(4))
+    if B > 0:
+        c = inp.consts
+        _launch("trace_tangent_save_f32", dev,
+                [inp.p0.data_ptr(), dp0v.data_ptr(), inp.z0.data_ptr(), dz0v.data_ptr(),
+                 *inp.pointers(), *(o.data_ptr() for o in grids),
+                 *(o.data_ptr() for o in (n_surf, n_bott, death, dseg))],
+                (B, inp.ccoef.shape[0], inp.bacoef.shape[0], nseg, sps, int(c.use_pow),
+                 int(c.bangle_cheb), int(c.term_back)),
+                inp, geom)
+        TANGENT_SAVE_LAUNCHES += 1
+
+    ts, zs, ps, dts, dzs, dps = (g.t().contiguous() for g in grids)
+    # alive at save point k  <=>  k precedes the ray's first-dead save index
+    alive_save = torch.arange(nseg + 1, dtype=torch.int32, device=dev)[None, :] < dseg[:, None]
+    res = TraceResult(
+        rs=_save_ranges(x0, x1, nseg, ts), ts=ts, zs=zs, ps=ps, n_bott=n_bott, n_surf=n_surf,
+        alive=death == 0, alive_save=alive_save, death_code=death,
+    )
+    return res, (dts, dzs, dps)

@@ -3,10 +3,12 @@
 The kernel itself (``pygenray_tpu_torch/csrc/trace_fan.cu``) runs only on a
 CUDA card; ``chip_smoke.py`` holds it against its plain version there.  Here
 the wrapper, on CPU tensors, runs that plain version, which must reproduce
-the JAX package's Pallas kernel (``trace_pallas`` in interpret mode) at
-float32 with ``tests/test_pallas.py``'s tolerances: counters, death codes
-and ``alive_save`` exact, travel times within 5e-6 s (1e-5 s with a
-Chebyshev bottom angle).  As there, the
+the JAX package at float32 with ``tests/test_pallas.py``'s tolerances:
+counters, death codes and ``alive_save`` exact, travel times within 5e-6 s
+(1e-5 s with a Chebyshev bottom angle).  The flat-bottom case runs the JAX
+package's Pallas kernel itself (``trace_pallas`` in interpret mode, one run:
+the interpreter is slow); the curved-bottom case runs the JAX package's
+scan, the plain reference its own kernel tests use.  As there, the
 monomial (Horner) path is disabled (``poly_ok=False``): the interpreter
 contracts fused multiply-adds where torch does not, and the ulp-level
 difference grows along multi-bounce rays.
@@ -21,7 +23,11 @@ import torch
 
 import pygenray_tpu as jp
 import pygenray_tpu_torch as tp
-from pygenray_tpu.integrate import SolverSettings as JSettings, _use_cheb as j_use_cheb
+from pygenray_tpu.integrate import (
+    SolverSettings as JSettings,
+    _trace_impl as j_trace_impl,
+    _use_cheb as j_use_cheb,
+)
 from pygenray_tpu.ops.pallas_stepper import (
     _launch_consts as j_launch_consts,
     pallas_supported,
@@ -93,8 +99,11 @@ def test_plain_version_matches_pallas_interpret(kind, angles, kahan, ts_atol):
     z0[-1] = 6500.0  # below z_dom: dead at launch
     c_src = np.interp(1300.0, np.asarray(je.z), np.asarray(je.c[0]))
     p0 = np.sin(np.radians(-angles)) / c_src
-    ref = trace_pallas(je, jnp.asarray(z0, jnp.float32), jnp.asarray(p0, jnp.float32), geom,
-                       JSettings(dx=dx, kahan=kahan), interpret=True)
+    jz0, jp0 = jnp.asarray(z0, jnp.float32), jnp.asarray(p0, jnp.float32)
+    if kind == "flat":
+        ref = trace_pallas(je, jz0, jp0, geom, JSettings(dx=dx, kahan=kahan), interpret=True)
+    else:
+        ref = j_trace_impl(je, jz0, jp0, geom, JSettings(dx=dx, kahan=kahan, backend="xla"))
     n0 = stepper.LAUNCHES
     out = trace_kernel(te, z0, p0, geom, SolverSettings(dx=dx, kahan=kahan))
     assert stepper.LAUNCHES == n0  # CPU tensors: the plain version, no launch
@@ -224,7 +233,7 @@ def test_build_flags_and_source_hash(monkeypatch):
     flags = _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert not any("fast_math" in f for f in flags)
-    assert _build.sources() == ["trace_fan", "trace_tangent"]
+    assert _build.sources() == ["trace_fan", "trace_tangent", "trace_tangent_save"]
     for name in _build.sources():
         src = (_build.CSRC / f"{name}.cu").read_text()
         entry = f'extern "C" int {name}_f32('

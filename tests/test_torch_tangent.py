@@ -2,12 +2,16 @@
 kernel (``integrate._trace_tangent_impl``), its wrapper and the dual-number
 rules it is built from.
 
-* Against the JAX package's tangent kernel (``trace_pallas_tangent`` in
-  interpret mode) at float32, range-independent and range-dependent, with
-  ``tests/test_pallas.py``'s bounds: counters and death codes exact, T
-  within 1e-4 s, z within 0.1 m, dz and dT within 2e-3 relative (to
-  |value| + 1e3) on live rays.  As there, the monomial (Horner) path is off
-  (the interpreter contracts fused multiply-adds where torch does not).
+* Against the JAX package at float32 with ``tests/test_pallas.py``'s
+  bounds: counters and death codes exact, T within 1e-4 s, z within 0.1 m,
+  dz and dT within 2e-3 relative (to |value| + 1e3) on live rays.  The
+  range-independent case runs the JAX tangent kernel itself
+  (``trace_pallas_tangent`` in interpret mode, one run: the interpreter is
+  slow); the range-dependent case runs ``jax.jvp`` through the JAX
+  package's scan without Kahan, the plain reference its own kernel tests
+  use (``tests/test_custom_jvp.py``).  As there, the monomial (Horner) path
+  is off (the interpreter contracts fused multiply-adds where torch does
+  not).
 * Against central differences of the port's float64 forward trace.
 * Its primal is the forward trace without Kahan compensation, bit for bit.
 * The wrapper on CPU tensors is the plain version.
@@ -27,7 +31,7 @@ import torch
 
 import pygenray_tpu as jp
 import pygenray_tpu_torch as tp
-from pygenray_tpu.integrate import SolverSettings as JSettings
+from pygenray_tpu.integrate import SolverSettings as JSettings, _trace_impl as j_trace_impl
 from pygenray_tpu.ops.pallas_stepper import trace_pallas_tangent
 from pygenray_tpu_torch.integrate import (
     SolverSettings,
@@ -66,10 +70,25 @@ def _p0():
     return np.sin(np.radians(-ANGLES)) / 1500.0
 
 
+def _jax_scan_tangent(je, p0):
+    """The JAX package's final state, its tangent for a unit seed in p0 and
+    its counters, by ``jax.jvp`` through the scan without Kahan: the nine
+    outputs of ``trace_pallas_tangent``."""
+    s = JSettings(dx=DX, backend="xla", kahan=False)
+
+    def f(p):
+        r = j_trace_impl(je, 1300.0, p, _geom(), s)
+        return (r.ts[:, -1], r.zs[:, -1], r.ps[:, -1]), (r.n_surf, r.n_bott, r.death_code)
+
+    prim, tang, ints = jax.jvp(f, (p0,), (jnp.ones_like(p0),), has_aux=True)
+    return (*prim, *tang, *ints)
+
+
 @pytest.fixture(scope="module")
 def tangents():
-    """Per kind: the port's plain tangent and the JAX interpret kernel's,
-    both at float32 on the same numpy inputs."""
+    """Per kind: the port's plain tangent and the JAX package's (the
+    interpret kernel for "ri", the scan's jvp for "rd"), both at float32 on
+    the same numpy inputs."""
     out = {}
     for kind in ("ri", "rd"):
         args = _tables(kind)
@@ -77,8 +96,12 @@ def tangents():
         te = dataclasses.replace(tp.make_env_data(*args, dtype=torch.float32, device="cpu"),
                                  poly_ok=False)
         assert te.range_dependent == (kind == "rd")
-        ref = trace_pallas_tangent(je, 1300.0, jnp.asarray(_p0(), jnp.float32), 1.0, _geom(),
-                                   JSettings(dx=DX, kahan=False), interpret=True)
+        p0 = jnp.asarray(_p0(), jnp.float32)
+        if kind == "ri":
+            ref = trace_pallas_tangent(je, 1300.0, p0, 1.0, _geom(),
+                                       JSettings(dx=DX, kahan=False), interpret=True)
+        else:
+            ref = _jax_scan_tangent(je, p0)
         got = _trace_tangent_impl(te, 1300.0, _p0(), 1.0, _geom(), SolverSettings(dx=DX))
         out[kind] = (te, [np.asarray(a) for a in ref], got)
     return out
