@@ -26,7 +26,15 @@ central differences and the JAX package's answers
 ``tests/fixtures/make_receiver_fixture.py``).  It times kernels, plain
 versions, eigenray latencies and the receiver-side calls, and holds the
 save-grid tangent kernel to its plain version once more at each full shape
-those calls gave it.  Each phase prints
+those calls gave it.  Monte Carlo: it holds the fan kernel's segment mode
+(rough fields) and the ensemble forward-tangent kernel
+(``trace_tangent_ens.cu``) to their plain versions at the shapes the
+Monte-Carlo paths give them, drives
+``trace_ensemble`` over BASELINE config 4's 16 internal-wave realizations
+× 65,536 rays and over ``bench.py``'s 16-realization rough field at full
+width, and ``mc_eigenray_times`` at config 4b, and holds the Monte-Carlo
+answers to the JAX package's (``tests/fixtures/mc_jax_f32.npz``, written by
+``tests/fixtures/make_mc_fixture.py``).  Each phase prints
 one line; the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero without that line.  It needs no network and
 imports no JAX.
@@ -51,6 +59,7 @@ ORACLE = FIXTURES / "bench_oracle_100km.npz"
 ORACLE_RD = FIXTURES / "bench_oracle_rd.npz"
 EIGEN_JAX = FIXTURES / "eigen_jax_f32.npz"
 RECEIVER_JAX = FIXTURES / "receiver_jax_f32.npz"
+MC_JAX = FIXTURES / "mc_jax_f32.npz"
 
 # the headline fan (BASELINE config 0; the JAX package's bench.py)
 R_MAX = 100e3
@@ -111,6 +120,29 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # a Dual operation costs 2.5 plain ones (a Horner term: 5 against 2)
 DUAL_FACTOR = 2.5
+# Monte Carlo: BASELINE config 4 (bench.py:479-509) and the rough field
+# (:558-595) at full width, 16 realizations each
+MC_E = 16
+MC_RAYS = 65_536
+ROUGH_DX = 100.0
+SEG_X1 = 30e3  # range of the range-independent segment-mode comparisons
+# Monte-Carlo eigenrays, the port's one-shot Newton against the JAX
+# package's regula falsi (tests/test_montecarlo.py:331-337)
+MC_ANGLE_DEG = 0.05
+MC_TIME_S = 5e-4
+# the rough field's fan against the JAX package: a segment fit jumps by up
+# to its residual (0.1 m/s) at each segment boundary, so where rounding
+# puts a ray's depth on either side of one, its path parts, and after 30 km
+# of this field float32 itself is not reproducible: the port's float32
+# against its float64 on a CPU (the fixture's 2 x 1,024 rays) differ by a
+# median 3.2e-6 s, by more than 1e-4 s on 13 % of the rays, by up to 0.06 s;
+# the port's float32 against the JAX package's alike (2.6e-6 s, 15 %, 0.05
+# s).  Held: counters equal on 99.9 % of rays and, on those, a median time
+# error within 1e-5 s and 80 % of the times within 1e-4 s
+ROUGH_RAY_SHARE = 0.999
+ROUGH_TIME_MEDIAN_S = 1e-5
+ROUGH_TIME_S = 1e-4
+ROUGH_TIME_SHARE = 0.8
 ORACLE_BUDGET_MS = 0.1  # BASELINE.json travel-time budget
 # final depth vs the oracle: the depth a 15-degree ray crosses within the
 # travel-time budget, 0.1 ms * 1500 m/s / sin(15 deg) = 0.58 m, rounded down
@@ -237,6 +269,29 @@ def fan_bound(res, env, sps):
     ray_steps = float((res.alive_save.sum(1) - 1).clamp(min=0).sum()) * sps
     nbytes = B * (8 + 12 * S + 16) + step_input_bytes(env, (S - 1) * sps)
     return bound(ray_steps * step_ops(env), nbytes)
+
+
+def seg_step_ops(env):
+    """FP32 operations of one forward ray-step in the segment mode, counted
+    from csrc/trace_fan.cu as ``step_ops`` does: four right-hand sides of
+    two Ks-term series each (Horner 2 ops a term, Clenshaw 4; with a
+    range-dependent field 3 more a term to blend the two stations) plus 8
+    for each segment pick, 18 around them, and about 50 for the rest."""
+    Ks = env.c_seg.shape[-2]
+    term = (2 if env.seg_basis == "pow" else 4) + (3 if env.range_dependent else 0)
+    return 4 * (2 * ((Ks - 1) * term + 3) + 8 + 18) + 50
+
+
+def seg_fan_bound(res, env, sps):
+    """Bound of one segment-mode launch: the ray-steps its rays lived, each
+    input read once (the (nr, Ks, S) tables, the per-step station indices
+    and weights) and each output written once."""
+    B, S = res.ts.shape
+    ray_steps = float((res.alive_save.sum(1) - 1).clamp(min=0).sum()) * sps
+    nsteps = (S - 1) * sps
+    tables = 8 * (env.c_seg.numel() if env.range_dependent else env.c_seg[0].numel())
+    nbytes = B * (8 + 12 * S + 16) + nsteps * (9 + 16) + tables
+    return bound(ray_steps * seg_step_ops(env), nbytes)
 
 
 def tangent_bound(out, env, nsteps):
@@ -759,6 +814,321 @@ def save_tangent_times_phase(cx, rcv, plain_8192_ms):
     return rows, {f: max(e[f] for e in errs_all) for f in errs_all[0]}
 
 
+# ---------------------------------------------------------------------------
+# Monte Carlo: the segment mode, the ensemble tangent kernel, config 4
+# ---------------------------------------------------------------------------
+
+
+def mc_context(cx):
+    """BASELINE config 4's ensemble (bench.py:480-482: 16 internal-wave
+    realizations of Munk, nz = 1024, 32 stations over 100 km, flat 5000 m
+    bottom; Chebyshev, 64 terms) and bench.py's rough field (16
+    realizations, nz = 2001, 16 stations; segment fits), built on the card
+    by the port's make_env_ensemble."""
+    from pygenray_tpu_torch.models import perturbed_munk_tables
+
+    torch, pt = cx.torch, cx.pt
+    t0 = time.perf_counter()
+    c, r, z = perturbed_munk_tables(MC_E, r_max=R_MAX, nr=32, nz=1024, seed=0)
+    cx.env_mc = pt.make_env_ensemble(c, r, z, np.full(32, 5000.0), r, dtype=torch.float32,
+                                     device=cx.dev)
+    t1 = time.perf_counter()
+    c, r, z = rough_field().rough_tables(pt.munk_ssp, MC_E)
+    cx.env_sg = pt.make_env_ensemble(c, r, z, np.full(16, 5000.0), r, dtype=torch.float32,
+                                     device=cx.dev)
+    t2 = time.perf_counter()
+    # bench.py converts launch angles with the unperturbed Munk speed
+    cx.c_src_mc = float(pt.munk_ssp(np.asarray([SRC_DEPTH]))[0])
+    env_mc, env_sg = cx.env_mc, cx.env_sg
+    emit("mc_ensembles", config4={"realizations": int(env_mc.c.shape[0]),
+                                  "terms": int(env_mc.c_cheb.shape[-1]), "poly_ok": env_mc.poly_ok,
+                                  "fit_seconds": t1 - t0},
+         rough={"realizations": int(env_sg.c.shape[0]), "basis": env_sg.seg_basis,
+                "terms": int(env_sg.c_seg.shape[-2]), "segments": int(env_sg.c_seg.shape[-1]),
+                "fit_seconds": t2 - t1})
+    require(env_mc.has_cheb and env_mc.range_dependent, "config 4 ensemble is not Chebyshev")
+    require(env_sg.has_seg and not env_sg.has_cheb and env_sg.range_dependent,
+            "the rough ensemble did not take the segment fit")
+
+
+def rough_field():
+    """tests/fixtures/rough_field.py (numpy only), imported by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("rough_field", FIXTURES / "rough_field.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def seg_kernel_phase(cx):
+    """The fan kernel's segment mode against its plain version: a
+    range-independent Munk fit in each basis ("pow", Horner: 8 terms;
+    "cheb", Clenshaw: 32), 8,192 rays to 30 km; and realization 0 of the
+    rough field (range-dependent, two stations blended at each pick) at the
+    shape the rough trace_ensemble gives each launch: 65,536 rays to 100 km,
+    dx = 100 m, 2 saves.  Returns (worst errors, the rough case's row for
+    the times: kernel and plain ms, bound)."""
+    from pygenray_tpu_torch.envdata import env_member
+
+    torch, pt, stepper = cx.torch, cx.pt, cx.stepper
+    z, r = np.linspace(0.0, 6000.0, NZ), np.linspace(0.0, R_MAX, NR)
+    errs, out = [], {}
+    cases = []
+    p0_eq = lambda env: on_card(cx, launch_p0(pt, env, cx.eq_angles))
+    for basis in ("pow", "cheb"):
+        env = pt.make_env_data(np.outer(np.ones(NR), pt.munk_ssp(z)), r, z, np.full(NR, 5000.0),
+                               r, interp="seg", seg_basis=basis, dtype=torch.float32,
+                               device=cx.dev)
+        require(env.has_seg and env.seg_basis == basis and not env.range_dependent,
+                f"the {basis} segment fit is not range-independent")
+        cases.append((f"segment_{basis}", env, cx.settings, p0_eq(env), SEG_X1, 10))
+    cases.append(("segment_rough_rd", env_member(cx.env_sg, 0), pt.SolverSettings(dx=ROUGH_DX),
+                  on_card(cx, mc_launch_p0(cx)), R_MAX, 2))
+    for name, env, s, p0, x1, num_save in cases:
+        h, sps, nseg = cx.plan(0.0, x1, num_save, s.dx)
+        geom = (0.0, x1, h, sps, nseg)
+        require(stepper.kernel_supported(env, s) and not stepper.tangent_supported(env, s),
+                f"{name}: not the fan kernel's segment mode")
+        n0 = stepper.SEG_LAUNCHES
+        res_k = stepper.trace_kernel(env, SRC_DEPTH, p0, geom, s)
+        require(stepper.SEG_LAUNCHES == n0 + 1, f"{name}: the segment mode did not launch")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_p = pt.trace(env, SRC_DEPTH, p0, 0.0, x1, num_save,
+                         dataclasses.replace(s, backend="ops"))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs.append(compare(f"{name}_K{int(env.c_seg.shape[-2])}", res_k, res_p))
+        if name == "segment_rough_rd":
+            b_ms, b_by = seg_fan_bound(res_k, env, sps)
+            out = {"rays": int(p0.shape[0]), "steps": sps * nseg, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "kernel_event_ms": events_ms(
+                       lambda: stepper.trace_kernel(env, SRC_DEPTH, p0, geom, s), n=5)}
+    return worst(errs), out
+
+
+def mc_launch_p0(cx):
+    """The launch parameters of the Monte-Carlo fans: 65,536 rays over
+    ±15°, converted with the unperturbed Munk speed at the source as
+    bench.py does."""
+    return np.sin(np.radians(-np.linspace(-ANGLE_SPAN, ANGLE_SPAN, MC_RAYS))) / cx.c_src_mc
+
+
+def ens_tangent_phase(cx, mc):
+    """The ensemble tangent kernel at the two shapes config 4b's
+    mc_eigenray_times gives it, over all 16 realizations (100 km, dx = 200
+    m, the solver's 2-save plan): the fan (16 × 512 angles over ±14°) and
+    the Newton batch (16 × MC_BRACKET_CAP: each realization's arrivals
+    from the main path's run and, in the unused lanes, the fan's last angle,
+    where the compaction's sentinel points them).  Each launch is held to
+    the plain version and each row to the final-state tangent kernel on its
+    realization alone, bit for bit.  The plain version runs once over both
+    shapes' candidates side by side (16 × 536): its arithmetic is
+    elementwise over candidates, so each one's numbers do not depend on its
+    neighbours, and the loop costs the same at any width (launch-bound).
+    Returns (worst errors, the rows for the times)."""
+    from pygenray_tpu_torch.envdata import env_member
+    from pygenray_tpu_torch.integrate import _ens_step_data, _trace_tangent_ens_impl
+    from pygenray_tpu_torch.montecarlo import MC_BRACKET_CAP
+
+    torch, stepper, env = cx.torch, cx.stepper, cx.env_mc
+    h, sps, nseg = cx.plan(0.0, R_MAX, 2, DX)
+    geom = (0.0, R_MAX, h, sps, nseg)
+    s = cx.settings
+    sd = _ens_step_data(env, geom, s)  # the rows, built once per call as the main path does
+    newton = np.full((MC_E, MC_BRACKET_CAP), 14.0)
+    M = mc["valid"].shape[1]
+    newton[:, :M] = np.where(mc["valid"], mc["theta"], 14.0)
+    shapes = (("config4b_fan", np.broadcast_to(np.linspace(-14.0, 14.0, 512), (MC_E, 512))),
+              ("config4b_newton", newton))
+    P = {label: on_card(cx, np.sin(np.radians(-np.asarray(ang))) / cx.c_src_mc)
+         for label, ang in shapes}
+    outs = {}
+    for label, _ in shapes:
+        n0 = stepper.TANGENT_ENS_LAUNCHES
+        outs[label] = stepper.trace_tangent_ensemble_kernel(env, SRC_DEPTH, P[label], 1.0, geom, s,
+                                                            sd)
+        require(stepper.TANGENT_ENS_LAUNCHES == n0 + 1,
+                "the ensemble tangent kernel did not launch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    both = _trace_tangent_ens_impl(env, SRC_DEPTH, torch.cat([P[lb] for lb, _ in shapes], 1), 1.0,
+                                   geom, s, sd)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs, rows, lo = [], {}, 0
+    for label, _ in shapes:
+        out_k, m = outs[label], P[label].shape[1]
+        out_p = [a[:, lo:lo + m] for a in both]
+        lo += m
+        errs.append(compare_tangent(label, [a.reshape(-1) for a in out_k],
+                                    [a.reshape(-1) for a in out_p]))
+        rows_equal = []
+        for e in range(MC_E):
+            b2 = stepper.trace_tangent_kernel(env_member(env, e), SRC_DEPTH, P[label][e], 1.0,
+                                              geom, s)
+            rows_equal.append(all(bool(torch.equal(a[e], b)) for a, b in zip(out_k, b2)))
+        emit("ens_tangent_rows_vs_tangent_kernel", case=label, rows_equal=rows_equal)
+        require(all(rows_equal), f"{label}: an ensemble row differs from the tangent kernel on "
+                "its realization")
+        b_ms, b_by = ens_tangent_bound(out_k, env_member(env, 0), sps * nseg)
+        rows[label] = {"realizations": MC_E, "candidates": m, "steps": sps * nseg,
+                       "bound_ms": b_ms, "bound_by": b_by, "kernel_event_ms": events_ms(
+                           lambda: stepper.trace_tangent_ensemble_kernel(
+                               env, SRC_DEPTH, P[label], 1.0, geom, s, sd), n=10)}
+    rows["plain_both"] = {"realizations": MC_E, "candidates": int(both[0].shape[1]),
+                          "steps": sps * nseg, "plain_ms": plain_ms}
+    return {f: max(e[f] for e in errs) for f in TAN_FIELDS}, rows
+
+
+def ens_tangent_bound(out, env0, nsteps):
+    """``tangent_bound`` over an (E, M) launch: every realization reads its
+    own per-step rows."""
+    E = out[0].shape[0]
+    live = int((out[8] == 0).sum())
+    return bound(live * nsteps * step_ops(env0) * DUAL_FACTOR,
+                 out[0].numel() * 48 + E * step_input_bytes(env0, nsteps))
+
+
+def mc_paths_phase(cx):
+    """The Monte-Carlo main paths at full width through the user API, the
+    launch counts set to 0 just before each and read just after:
+    ``trace_ensemble`` over config 4's 16 realizations × 65,536 rays (100
+    km, dx = 200 m, 2 saves; 16 fan-kernel launches, spectral);
+    ``mc_eigenray_times`` at config 4b (512-angle ±14° fans, receiver at
+    1300 m, ztol = 1 m: the one-shot path, the ensemble tangent kernel for
+    the fan and every Newton iteration, 16 fan-kernel launches for the
+    final evaluation); ``trace_ensemble`` over the rough field's 16
+    realizations × 65,536 rays (dx = 100 m; 16 segment-mode launches)."""
+    torch, pt, stepper = cx.torch, cx.pt, cx.stepper
+    p0 = on_card(cx, mc_launch_p0(cx))
+    s4, s_sg = pt.SolverSettings(dx=DX), pt.SolverSettings(dx=ROUGH_DX)
+    counts = lambda: {"trace_fan_f32": stepper.LAUNCHES, "segment_mode": stepper.SEG_LAUNCHES,
+                      "trace_tangent_ens_f32": stepper.TANGENT_ENS_LAUNCHES,
+                      "trace_tangent_f32": stepper.TANGENT_LAUNCHES}
+    out = {}
+
+    def drive(name, fn, runs=3):
+        """One synchronized call with the counts set to 0 just before it
+        and read just after, then ``runs`` more for the wall time."""
+        torch.cuda.synchronize()
+        stepper.LAUNCHES = stepper.SEG_LAUNCHES = 0
+        stepper.TANGENT_ENS_LAUNCHES = stepper.TANGENT_LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        n = counts()
+        walls = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"launches": n, "first_call_s": first, "median_s": statistics.median(walls),
+                     "runs_s": walls}
+        return res, n
+
+    res, n = drive("config4", lambda: pt.trace_ensemble(cx.env_mc, SRC_DEPTH, p0, 0.0, R_MAX, 2, s4))
+    alive = res.alive
+    emit("config4_trace_ensemble", card=cx.smi, rays=MC_E * MC_RAYS, alive=int(alive.sum()),
+         rays_per_s=MC_E * MC_RAYS / out["config4"]["median_s"], **out["config4"])
+    require(n["trace_fan_f32"] == MC_E and n["segment_mode"] == 0,
+            f"config 4 launched {n}, expected {MC_E} spectral fan launches")
+    require(res.ts.shape == (MC_E, MC_RAYS, 2) and bool(torch.isfinite(res.ts[alive]).all())
+            and int(alive.sum()) >= 0.999 * MC_E * MC_RAYS, "config 4: non-finite or lost rays")
+
+    fan = np.linspace(-14.0, 14.0, 512)
+    mc, n = drive("config4b", lambda: pt.mc_eigenray_times(
+        cx.env_mc, fan, 1300.0, SRC_DEPTH, 0.0, R_MAX, ztol=1.0, settings=s4), runs=5)
+    v = mc["valid"]
+    emit("config4b_mc_eigenray_times", card=cx.smi, path=mc["path"], arrivals=int(v.sum()),
+         arrivals_per_realization=v.sum(axis=1).tolist(),
+         max_residual_m=float(np.max(mc["z_resid"][v], initial=0.0)),
+         t_spread_ms=float(np.nanmax(np.nanstd(np.where(v, mc["t"], np.nan), axis=0)) * 1e3),
+         **out["config4b"])
+    require(mc["path"] == "one-shot", f"config 4b took the {mc['path']} path")
+    require(n["trace_tangent_ens_f32"] >= 2 and n["trace_fan_f32"] == MC_E
+            and n["trace_tangent_f32"] == 0,
+            f"config 4b launched {n}: expected the ensemble kernel for the fan and each "
+            f"iteration and {MC_E} fan launches")
+    require(v.sum(axis=1).min() >= 1 and np.isfinite(mc["t"][v]).all()
+            and (mc["z_resid"][v] < 1.0).all(), "config 4b: missing or unconverged arrivals")
+
+    res, n = drive("rough", lambda: pt.trace_ensemble(cx.env_sg, SRC_DEPTH, p0, 0.0, R_MAX, 2,
+                                                      s_sg))
+    alive = res.alive
+    emit("rough_trace_ensemble", card=cx.smi, rays=MC_E * MC_RAYS, alive=int(alive.sum()),
+         rays_per_s=MC_E * MC_RAYS / out["rough"]["median_s"], **out["rough"])
+    require(n["trace_fan_f32"] == MC_E and n["segment_mode"] == MC_E,
+            f"the rough field launched {n}, expected {MC_E} segment-mode launches")
+    require(bool(torch.isfinite(res.ts[alive]).all())
+            and int(alive.sum()) >= 0.999 * MC_E * MC_RAYS, "rough field: non-finite or lost rays")
+    return out, mc
+
+
+def mc_vs_jax_phase(cx):
+    """The Monte-Carlo answers against the JAX package's
+    (tests/fixtures/mc_jax_f32.npz): config 4's demo-size eigenrays (the
+    port's one-shot Newton against its regula falsi, MC_ANGLE_DEG and
+    MC_TIME_S) and the rough field's fan (ROUGH_*), rebuilt here from the
+    stored parameters."""
+    from pygenray_tpu_torch.models import perturbed_munk_tables
+
+    torch, pt = cx.torch, cx.pt
+    fx = np.load(MC_JAX)
+    P = json.loads(str(fx["params"]))
+    lin = lambda f: np.linspace(f[0], f[1], int(f[2]))
+    m = P["mc"]
+    c, r, z = perturbed_munk_tables(m["E"], r_max=m["r_max"], nr=m["nr"], nz=m["nz"],
+                                    mu_rms=m["mu_rms"], seed=m["seed"])
+    env = pt.make_env_ensemble(c, r, z, np.full(len(r), m["bathy"]), r, dtype=torch.float32,
+                               device=cx.dev)
+    mc = pt.mc_eigenray_times(env, lin(m["fan"]), m["receiver_depth"], m["source_depth"], 0.0,
+                              m["r_max"], ztol=m["ztol"], settings=pt.SolverSettings(dx=m["dx"]))
+    valid_eq = bool(np.array_equal(mc["valid"], fx["mc/valid"]))
+    v = fx["mc/valid"]
+    err_a = float(np.max(np.abs(mc["theta"][v] - fx["mc/theta"][v]), initial=0.0))
+    err_t = float(np.max(np.abs(mc["t"][v] - fx["mc/t"][v]), initial=0.0))
+    nb_eq = bool(np.array_equal(mc["n_bott"][v], fx["mc/n_bott"][v]))
+    r_ = P["rough"]
+    c, r, z = rough_field().rough_tables(pt.munk_ssp, r_["E"], r_["nz"], r_["nr"], r_["r_max"],
+                                         r_["seed"])
+    env_r = pt.make_env_ensemble(c, r, z, np.full(len(r), r_["bathy"]), r, dtype=torch.float32,
+                                 device=cx.dev)
+    p0 = np.sin(np.radians(-lin(r_["fan"]))) / r_["c_src"]
+    fan = pt.trace_ensemble(env_r, r_["source_depth"], p0, 0.0, r_["x1"], 2,
+                            pt.SolverSettings(dx=r_["dx"]))
+    host = lambda t: t.cpu().numpy()
+    same = ((host(fan.n_surf) == fx["rough/n_surf"]) & (host(fan.n_bott) == fx["rough/n_bott"])
+            & (host(fan.death_code) == fx["rough/death_code"]))
+    dt = np.abs(host(fan.ts[..., -1]) - fx["rough/ts"])[same]
+    emit("mc_vs_jax", eigenrays={"valid_equal": valid_eq, "arrivals": int(v.sum()),
+                                 "path": mc["path"], "max_angle_err_deg": err_a,
+                                 "max_time_err_s": err_t, "n_bott_equal": nb_eq,
+                                 "max_residual_m": float(np.max(mc["z_resid"][v], initial=0.0))},
+         rough_fan={"basis": env_r.seg_basis, "terms": int(env_r.c_seg.shape[-2]),
+                    "rays": int(same.size), "rays_counters_equal": int(same.sum()),
+                    "rays_time_over_bound": int((dt > ROUGH_TIME_S).sum()),
+                    "max_time_err_s": float(dt.max(initial=0.0)),
+                    "time_err_median_s": float(np.median(dt)) if dt.size else 0.0},
+         bounds={"angle_deg": MC_ANGLE_DEG, "time_s": MC_TIME_S,
+                 "rough_ray_share": ROUGH_RAY_SHARE, "rough_time_median_s": ROUGH_TIME_MEDIAN_S,
+                 "rough_time_s": ROUGH_TIME_S, "rough_time_share": ROUGH_TIME_SHARE})
+    require(mc["path"] == "one-shot" and valid_eq and nb_eq and int(v.sum()) > 0,
+            "Monte-Carlo eigenrays: arrivals differ from the JAX package's")
+    require(err_a <= MC_ANGLE_DEG and err_t <= MC_TIME_S
+            and (mc["z_resid"][v] < m["ztol"]).all(),
+            f"Monte-Carlo eigenrays off the JAX package's by {err_a:.3g} deg, {err_t:.3g} s")
+    require(same.mean() >= ROUGH_RAY_SHARE and float(np.median(dt)) <= ROUGH_TIME_MEDIAN_S
+            and (dt <= ROUGH_TIME_S).mean() >= ROUGH_TIME_SHARE,
+            f"rough fan off the JAX package's: {same.mean():.4f} of rays with equal counters, "
+            f"median {float(np.median(dt)):.3g} s, {(dt <= ROUGH_TIME_S).mean():.4f} of those "
+            f"within {ROUGH_TIME_S} s")
+
+
 def build_context(torch, pt, dev):
     """The environments, fans and settings the kernel comparisons share."""
     from pygenray_tpu_torch.integrate import _plan
@@ -1077,6 +1447,14 @@ def main() -> int:
     sv, sv_err_full = save_tangent_times_phase(cx, rcv, sv_plain_8192_ms)
     sv_err = {f: max(e, sv_err_full[f]) for f, e in sv_err.items()}
 
+    # ---- phases 16-21: Monte Carlo --------------------------------------------
+    mc_context(cx)
+    seg_err, seg_row = seg_kernel_phase(cx)
+    mc_paths, mc = mc_paths_phase(cx)
+    ens_err, ens_rows = ens_tangent_phase(cx, mc)
+    mc_vs_jax_phase(cx)
+    emit("times_mc", card=smi, segment_rough=seg_row, **ens_rows)
+
     err = worst(errs_all)
     launches_tan = eig["timefront"][1][1]
     print(smi, flush=True)
@@ -1142,6 +1520,46 @@ def main() -> int:
         "ms_array_response_eigenrays": sv["array_response_eigenrays"]["kernel_event_ms"],
         "plain_ms_array_response_eigenrays": sv["array_response_eigenrays"]["plain_ms"],
         "bound_ms_array_response_eigenrays": sv["array_response_eigenrays"]["bound_ms"],
+    }, {
+        # the fan kernel's segment mode at the rough trace_ensemble's shape
+        "name": "trace_fan_f32_segment",
+        "route": "cuda",
+        "source": "pygenray_tpu_torch/csrc/trace_fan.cu",
+        "replaces": "pygenray_tpu/ops/pallas_stepper.py:254",
+        "launches": mc_paths["rough"]["launches"]["segment_mode"],  # the rough trace_ensemble
+        "max_abs_err": seg_err["ts"],  # travel time [s]; zs [m] and ps [s/m] below
+        "max_abs_err_zs": seg_err["zs"],
+        "max_abs_err_ps": seg_err["ps"],
+        "ms": seg_row["kernel_event_ms"],
+        "plain_ms": seg_row["plain_ms"],
+        "bound_ms": seg_row["bound_ms"],
+        "bound_by": seg_row["bound_by"],
+        "library_ms": None,  # no single PyTorch call traces a ray fan
+        "shape": f"{seg_row['rays']} rays x {seg_row['steps']} steps",
+    }, {
+        # ms and bound at config 4b's Newton batch (the fan's below); the
+        # plain version once over both shapes' candidates
+        "name": "trace_tangent_ens_f32",
+        "route": "cuda",
+        "source": "pygenray_tpu_torch/csrc/trace_tangent_ens.cu",
+        "replaces": "pygenray_tpu/ops/pallas_stepper.py:1258",
+        "launches": mc_paths["config4b"]["launches"]["trace_tangent_ens_f32"],  # mc_eigenray_times
+        "max_abs_err": ens_err["T"],  # travel time [s]; the rest below
+        "max_abs_err_z": ens_err["z"],
+        "max_abs_err_dT": ens_err["dT"],
+        "max_abs_err_dz": ens_err["dz"],
+        "max_abs_err_dp": ens_err["dp"],
+        "ms": ens_rows["config4b_newton"]["kernel_event_ms"],
+        "plain_ms": ens_rows["plain_both"]["plain_ms"],
+        "bound_ms": ens_rows["config4b_newton"]["bound_ms"],
+        "bound_by": ens_rows["config4b_newton"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a ray tangent
+        "shape": f"{MC_E} x {ens_rows['config4b_newton']['candidates']} candidates x "
+                 f"{ens_rows['config4b_newton']['steps']} steps",
+        "plain_shape": f"{MC_E} x {ens_rows['plain_both']['candidates']} candidates",
+        "ms_fan": ens_rows["config4b_fan"]["kernel_event_ms"],
+        "bound_ms_fan": ens_rows["config4b_fan"]["bound_ms"],
+        "bound_by_fan": ens_rows["config4b_fan"]["bound_by"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -2,12 +2,15 @@
 
 The PyTorch port of ``pygenray_tpu``: the same public API, conventions and
 numbers.  On a CUDA device the forward ray-fan trace runs as a hand-written
-CUDA kernel (``csrc/trace_fan.cu``), the eigenray search's Newton
-iterations as a forward-tangent kernel (``csrc/trace_tangent.cu``), and
-derivatives over the launch parameters (autograd through ``trace``, arrival
-amplitudes, impulse responses, transmission-loss fields) as a save-grid
-forward-tangent kernel (``csrc/trace_tangent_save.cu``); on the CPU all
-three run as torch-op step loops.  The entry points build their tensors
+CUDA kernel (``csrc/trace_fan.cu``, spectral and segment profiles), the
+eigenray search's Newton iterations as a forward-tangent kernel
+(``csrc/trace_tangent.cu``), derivatives over the launch parameters
+(autograd through ``trace``, arrival amplitudes, impulse responses,
+transmission-loss fields) as a save-grid forward-tangent kernel
+(``csrc/trace_tangent_save.cu``), and the Monte-Carlo eigenray search over
+an ensemble of environments as an ensemble forward-tangent kernel
+(``csrc/trace_tangent_ens.cu``); on the CPU all four run as torch-op step
+loops.  The entry points build their tensors
 on the CUDA device unless the caller passes ``device="cpu"``.  This package
 imports torch, numpy and scipy, never jax.
 
@@ -26,6 +29,7 @@ from .envdata import EnvData, env_from_reference, make_env_data, with_spectral
 from .integrate import DEATH_CODES, SolverSettings, TraceResult, trace
 from .shoot import shoot_ray, shoot_rays, settings_for
 from .eigenrays import find_eigenrays, find_eigenrays_batch
+from .montecarlo import make_env_ensemble, mc_eigenray_times, trace_ensemble
 from .amplitudes import Arrivals, arrival_amplitudes
 from .response import (
     ArrayResponse,
@@ -51,6 +55,7 @@ from .ops.host import (
 )
 from .ops.interp import bilinear_interp, linear_interp
 from .utils.xrlite import DataArray, LiteDataArray
+from . import models
 
 # reference-compatible kernel aliases
 derivsrd = derivs_np
@@ -77,6 +82,9 @@ __all__ = [
     "settings_for",
     "find_eigenrays",
     "find_eigenrays_batch",
+    "make_env_ensemble",
+    "trace_ensemble",
+    "mc_eigenray_times",
     "Arrivals",
     "arrival_amplitudes",
     "Response",

@@ -28,7 +28,7 @@ from .ops.seg import SEG_S, fit_profile_seg
 
 __all__ = ["EnvData", "make_env_data", "with_spectral", "mirror_env_arrays",
            "mirror_env_data", "host_profile_tables", "env_from_reference",
-           "DATA_FIELDS", "META_FIELDS", "resolve_dtype"]
+           "stack_env_data", "env_member", "DATA_FIELDS", "META_FIELDS", "resolve_dtype"]
 
 # fit-acceptance tolerances for the spectral fast path; exceeded → the engine
 # falls back to the piecewise-SEGMENT fast path (rough fields), and only
@@ -422,7 +422,9 @@ def env_from_reference(fields: dict, meta: dict, device="cuda", dtype=None) -> E
     ``meta`` maps every name in ``META_FIELDS`` to its value.  This carries a
     reference environment's exact state across without importing its
     framework.  ``device`` defaults to the CUDA device, ``dtype`` to
-    float32.
+    float32.  The arrays may carry a leading ensemble axis (a stacked
+    ``make_env_ensemble`` result's leaves): they are taken whole, so the
+    result is an ensemble too.
     """
     missing = [f for f in DATA_FIELDS if f not in fields]
     missing += [m for m in META_FIELDS if m not in meta]
@@ -438,6 +440,28 @@ def env_from_reference(fields: dict, meta: dict, device="cuda", dtype=None) -> E
         statics[m] = tuple(float(v) for v in statics[m])
     statics["bangle_const"] = float(statics["bangle_const"])
     return EnvData(**tensors, **statics)
+
+
+def stack_env_data(envs) -> EnvData:
+    """One ensemble ``EnvData`` from per-realization environments: every
+    ``DATA_FIELDS`` tensor gains a leading ensemble axis E, the metadata is
+    the members' own, which must agree (counterpart of the JAX package's
+    ``tree_map(jnp.stack)`` over a list of environments)."""
+    envs = list(envs)
+    if not envs:
+        raise ValueError("stack_env_data needs at least one environment")
+    meta = {m: getattr(envs[0], m) for m in META_FIELDS}
+    for e in envs[1:]:
+        bad = [m for m in META_FIELDS if getattr(e, m) != meta[m]]
+        if bad:
+            raise ValueError(f"ensemble members disagree on metadata {bad}")
+    return dataclasses.replace(
+        envs[0], **{f: torch.stack([getattr(e, f) for e in envs]) for f in DATA_FIELDS})
+
+
+def env_member(env_ens: EnvData, e: int) -> EnvData:
+    """Realization ``e`` of an ensemble ``EnvData`` (views of its tensors)."""
+    return dataclasses.replace(env_ens, **{f: getattr(env_ens, f)[e] for f in DATA_FIELDS})
 
 
 def with_spectral(env: EnvData, c_cheb, dcdz_cheb) -> EnvData:

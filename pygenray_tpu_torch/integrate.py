@@ -40,7 +40,7 @@ import math
 import numpy as np
 import torch
 
-from .envdata import EnvData
+from .envdata import EnvData, env_member
 from .ops import dual as D
 from .ops.cheb import clenshaw, horner
 from .ops.interp import cubic_spline_eval, interval_index, linear_interp
@@ -209,11 +209,19 @@ def _make_eval(env: EnvData, use_cheb: bool, use_pow: bool = False,
     return ev, ev_c
 
 
+def _station_iw(env: EnvData, x):
+    """``(i, w)``: the station interval of each range in ``x`` (any shape)
+    and the linear weight of station ``i + 1``.  The one source of these
+    numbers for the blended tables here and for the segment-mode fan kernel,
+    which blends at each coefficient pick instead (``ops/stepper.py``)."""
+    i = interval_index(x, env.r, env.uniform_r)
+    return i, (x - env.r[i]) / (env.r[i + 1] - env.r[i])
+
+
 def _blend_rows(env: EnvData, ctab, cptab, x):
     """Station tables blended linearly in range at ranges ``x`` (any shape):
     returns a pair of tables with ``x``'s shape prepended."""
-    i = interval_index(x, env.r, env.uniform_r)
-    w = (x - env.r[i]) / (env.r[i + 1] - env.r[i])
+    i, w = _station_iw(env, x)
     w = w.reshape(w.shape + (1,) * (ctab.dim() - 1))
     return (
         (1.0 - w) * ctab[i] + w * ctab[i + 1],
@@ -339,18 +347,25 @@ class StepData:
     prof_1s: tuple | None  # ... and at the step's end; None otherwise
 
 
+def _step_ranges(env: EnvData, geom):
+    """``(xs0, xsm, xs1)``: each step's start, middle and end range."""
+    x0, _, h, sps, nseg = geom
+    ks = torch.arange(sps * nseg, dtype=env.dtype, device=env.device)
+    xs0 = x0 + ks * h
+    return xs0, xs0 + 0.5 * h, x0 + (ks + 1.0) * h
+
+
 def _step_data(env: EnvData, geom, use_cheb, use_pow, use_seg, btol,
-               oob_step=None) -> StepData:
+               oob_step=None, blend=True) -> StepData:
     """``oob_step``: the domain flags when the caller holds them already
-    (the kernels' wrappers cache them per plan)."""
+    (the kernels' wrappers cache them per plan).  ``blend=False`` leaves a
+    range-dependent field's tables unblended (``prof0``, ``prof_ms`` and
+    ``prof_1s`` None): the segment-mode kernel blends at each pick."""
     x0, _, h, sps, nseg = geom
     nsteps = sps * nseg
     dtype, device = env.dtype, env.device
     rlo, rhi = env.r_dom
-    ks = torch.arange(nsteps, dtype=dtype, device=device)
-    xs0 = x0 + ks * h
-    xsm = xs0 + 0.5 * h
-    xs1 = x0 + (ks + 1.0) * h
+    xs0, xsm, xs1 = _step_ranges(env, geom)
     b0s = linear_interp(xs0, env.bathy_r, env.bathy, env.uniform_bathy_r)
     b1s = linear_interp(xs1, env.bathy_r, env.bathy, env.uniform_bathy_r)
     if oob_step is None:
@@ -363,7 +378,9 @@ def _step_data(env: EnvData, geom, use_cheb, use_pow, use_seg, btol,
             device=device,
         )
     ctab, cptab = _profile_tabs(env, use_cheb, use_pow, use_seg)
-    if env.range_dependent:
+    if env.range_dependent and not blend:
+        prof0 = prof_ms = prof_1s = None
+    elif env.range_dependent:
         prof_ms = _blend_rows(env, ctab, cptab, xsm)
         prof_1s = _blend_rows(env, ctab, cptab, xs1)
         prof0 = _blend_rows(env, ctab, cptab, torch.tensor(x0, dtype=dtype, device=device))
@@ -465,7 +482,7 @@ class _Stepper:
     """What both traces share: the evaluators, the per-step data and the
     step constants of one (environment, plan, settings)."""
 
-    def __init__(self, env: EnvData, geom, settings: SolverSettings):
+    def __init__(self, env: EnvData, geom, settings: SolverSettings, sd: StepData = None):
         x0, x1, h, sps, nseg = geom
         self.nseg, self.sps = nseg, sps
         use_cheb = _use_cheb(env, settings)
@@ -480,7 +497,8 @@ class _Stepper:
         self.term_back = settings.terminate_backwards
         self.hs = torch.tensor(h, dtype=env.dtype, device=env.device)
         self.h6 = self.hs / _scalar(6.0, self.hs)
-        self.sd = _step_data(env, geom, use_cheb, use_pow, use_seg, self.btol)
+        self.sd = sd or _step_data(env, geom, use_cheb, use_pow, use_seg, self.btol)
+        self.prof0 = self.sd.prof0  # the initial right-hand side's tables
 
     def rows(self, k):
         """(mid-step, end-of-step) profile tables of step k."""
@@ -517,6 +535,53 @@ class _Stepper:
                 death, newly)
 
 
+class _EnsStepper(_Stepper):
+    """Realization 0's ``_Stepper`` (evaluators, bathymetry, domain flags,
+    step constants) over an (E, M) ray state, each realization reading its
+    own profile rows from ``_ens_step_data`` as (E, 1, K) tables."""
+
+    def __init__(self, env_ens: EnvData, geom, settings: SolverSettings, sd: StepData):
+        super().__init__(env_member(env_ens, 0), geom, settings, sd)
+        self.prof0 = tuple(t[:, None] for t in sd.prof0)
+
+    def rows(self, k):
+        sd = self.sd
+        return tuple(t[:, k, None] for t in sd.prof_ms), tuple(t[:, k, None] for t in sd.prof_1s)
+
+
+def _ens_step_data(env_ens: EnvData, geom, settings: SolverSettings, oob_step=None) -> StepData:
+    """Each realization's spectral step data stacked: ``prof0`` (E, K),
+    ``prof_ms`` and ``prof_1s`` (E, nsteps, K), every realization's rows
+    blended by ``_blend_rows`` at the shared stations, so row e is
+    ``_step_data`` on realization e bit for bit; the ranges, bathymetry and
+    domain flags are realization 0's.  The ensemble tangent kernel reads
+    these tensors and its plain version these numbers; a caller that traces
+    an ensemble more than once (the Monte-Carlo Newton loop) builds them
+    once.  Raises unless the fits are range-dependent and every
+    realization has realization 0's stations, bathymetry and bottom angle,
+    which the kernel shares (as the JAX kernel does,
+    ``pallas_stepper.py:1309``)."""
+    if not env_ens.range_dependent:
+        raise ValueError("the ensemble tangent trace requires range-dependent fits")
+    for f in ("r", "bathy", "bathy_r", "bottom_angle", "bangle_cheb"):
+        t = getattr(env_ens, f)
+        if not bool((t == t[:1]).all()):
+            raise ValueError(f"the ensemble tangent trace takes realization 0's stations, "
+                             f"bathymetry and bottom angle for every realization; {f} differs")
+    env0 = env_member(env_ens, 0)
+    use_pow = _use_pow(env0, settings, True)
+    sd0 = _step_data(env0, geom, True, use_pow, False, settings.bbox_tol, oob_step, blend=False)
+    # (nr, E, K) station tables: blended rows come out (..., E, K)
+    ctab, cptab = (t.transpose(0, 1) for t in _profile_tabs(env_ens, True, use_pow, False))
+    _, xsm, xs1 = _step_ranges(env0, geom)
+    per_e = lambda rows: tuple(t.transpose(0, 1).contiguous() for t in rows)
+    x0 = torch.tensor(geom[0], dtype=env_ens.dtype, device=env_ens.device)
+    return dataclasses.replace(
+        sd0, prof0=tuple(t.contiguous() for t in _blend_rows(env0, ctab, cptab, x0)),
+        prof_ms=per_e(_blend_rows(env0, ctab, cptab, xsm)),
+        prof_1s=per_e(_blend_rows(env0, ctab, cptab, xs1)))
+
+
 def _trace_impl(env: EnvData, z0, p0, geom, settings: SolverSettings) -> TraceResult:
     x0, x1, h, sps, nseg = geom
     dtype, device = env.dtype, env.device
@@ -525,7 +590,7 @@ def _trace_impl(env: EnvData, z0, p0, geom, settings: SolverSettings) -> TraceRe
     st = _Stepper(env, geom, settings)
 
     # ---- initial state ---------------------------------------------------
-    kT, kz, kp, _ = st.rhs(st.sd.prof0, z0, p0)
+    kT, kz, kp, _ = st.rhs(st.prof0, z0, p0)
     alive = st.alive0(z0)
     death = torch.where(alive, 0, 2).to(torch.int32)
     T = torch.zeros(B, dtype=dtype, device=device)
@@ -575,35 +640,36 @@ def _trace_impl(env: EnvData, z0, p0, geom, settings: SolverSettings) -> TraceRe
     )
 
 
-def _tangent_loop(env: EnvData, z0, p0, dp0, dz0, geom, settings: SolverSettings, save: bool):
-    """The forward trace's step run on Duals (``ops.dual``) seeded with
-    ``(dp0, dz0)``, without Kahan compensation.  Returns the final ``(T, z,
-    p)`` Duals, ``n_surf``, ``n_bott``, ``death`` and, with ``save``, the
-    list of ``(T, z, p, alive)`` at row 0 and after every segment (else
-    None).  One loop for both tangent traces, so the save grid's last row
-    is the final-state trace bit for bit."""
+def _check_tangent(env: EnvData, settings: SolverSettings):
     if not _use_cheb(env, settings) or env.bangle_mode not in ("const", "cheb"):
         raise ValueError("the forward-tangent trace needs a spectral profile and a "
                          "constant or Chebyshev bottom angle")
-    dtype, device = env.dtype, env.device
-    z0, p0 = _as_batch(env, z0, p0)
-    dp0 = torch.as_tensor(dp0, dtype=dtype, device=device).expand(p0.shape)
-    B = p0.shape[0]
-    st = _Stepper(env, geom, settings)
 
-    zero = torch.zeros(B, dtype=dtype, device=device)
+
+def _tangent_loop(st: _Stepper, z0, p0, dp0, dz0, save: bool):
+    """The forward trace's step run on Duals (``ops.dual``) seeded with
+    ``(dp0, dz0)``, without Kahan compensation, over launch tensors ``z0``
+    and ``p0`` of one shape, (B,) or, through an ``_EnsStepper``, (E, M).
+    Returns the final ``(T, z, p)`` Duals, ``n_surf``, ``n_bott``, ``death``
+    and, with ``save``, the list of ``(T, z, p, alive)`` at row 0 and after
+    every segment (else None).  One loop for every tangent trace, so the
+    save grid's last row is the final-state trace bit for bit, and an
+    ensemble's row e the final-state trace on realization e."""
+    dtype, device = p0.dtype, p0.device
+    dp0 = torch.as_tensor(dp0, dtype=dtype, device=device).expand(p0.shape)
+    zero = torch.zeros(p0.shape, dtype=dtype, device=device)
     if dz0 is None:
         dz0 = zero
     else:
         dz0 = torch.as_tensor(dz0, dtype=dtype, device=device).expand(p0.shape)
     p = D.Dual(p0, dp0)
     z = D.Dual(z0, dz0)
-    kT, kz, kp, _ = st.rhs(st.sd.prof0, z, p)
+    kT, kz, kp, _ = st.rhs(st.prof0, z, p)
     alive = st.alive0(z0)
     death = torch.where(alive, 0, 2).to(torch.int32)
     T = D.Dual(zero, zero)
-    n_surf = torch.zeros(B, dtype=torch.int32, device=device)
-    n_bott = torch.zeros(B, dtype=torch.int32, device=device)
+    n_surf = torch.zeros(p0.shape, dtype=torch.int32, device=device)
+    n_bott = torch.zeros(p0.shape, dtype=torch.int32, device=device)
     saves = [(T, z, p, alive)] if save else None
     for seg in range(st.nseg):
         for k in range(seg * st.sps, (seg + 1) * st.sps):
@@ -636,8 +702,10 @@ def _trace_tangent_impl(env: EnvData, z0, p0, dp0, geom, settings: SolverSetting
     (Horner or Clenshaw; range-independent or range-dependent) with a
     constant or Chebyshev bottom angle, float32 or float64.
     """
-    T, z, p, n_surf, n_bott, death, _ = _tangent_loop(env, z0, p0, dp0, None, geom, settings,
-                                                      save=False)
+    _check_tangent(env, settings)
+    st = _Stepper(env, geom, settings)
+    z0, p0 = _as_batch(env, z0, p0)
+    T, z, p, n_surf, n_bott, death, _ = _tangent_loop(st, z0, p0, dp0, None, save=False)
     return T.v, z.v, p.v, T.t, z.t, p.t, n_surf, n_bott, death
 
 
@@ -658,8 +726,10 @@ def _trace_tangent_save_impl(env: EnvData, z0, p0, dp0, geom, settings: SolverSe
     state and tangent.  Same coverage as ``_trace_tangent_impl``.
     """
     x0, x1, _, _, nseg = geom
-    _, _, _, n_surf, n_bott, death, saves = _tangent_loop(env, z0, p0, dp0, dz0, geom, settings,
-                                                          save=True)
+    _check_tangent(env, settings)
+    st = _Stepper(env, geom, settings)
+    z0, p0 = _as_batch(env, z0, p0)
+    _, _, _, n_surf, n_bott, death, saves = _tangent_loop(st, z0, p0, dp0, dz0, save=True)
     Ts, zs, ps, alives = zip(*saves)
     grid = lambda duals, part: torch.stack([getattr(d, part) for d in duals], dim=1)
     res = TraceResult(
@@ -674,6 +744,25 @@ def _trace_tangent_save_impl(env: EnvData, z0, p0, dp0, geom, settings: SolverSe
         death_code=death,
     )
     return res, (grid(Ts, "t"), grid(zs, "t"), grid(ps, "t"))
+
+
+def _trace_tangent_ens_impl(env_ens: EnvData, z0, p0, dp0, geom, settings: SolverSettings,
+                            sd: StepData = None):
+    """``_trace_tangent_impl`` over an ensemble: realization ``e``'s (M,)
+    launch parameters ``p0[e]`` and seeds ``dp0[e]`` (``dp0`` broadcasts
+    to ``p0``'s (E, M)) against its own profile rows, from one scalar
+    source depth ``z0``.  Returns the same nine outputs with (E, M) fields.
+    The plain version of the ensemble tangent kernel (``ops/stepper.py``,
+    ``csrc/trace_tangent_ens.cu``): one Dual loop over the (E, M) rays,
+    reading the rows the kernel is given (``_ens_step_data``; ``sd`` when
+    the caller holds them already), so row e is ``_trace_tangent_impl`` on
+    realization e bit for bit."""
+    _check_tangent(env_member(env_ens, 0), settings)
+    st = _EnsStepper(env_ens, geom, settings, sd or _ens_step_data(env_ens, geom, settings))
+    p0 = torch.as_tensor(p0, dtype=env_ens.dtype, device=env_ens.device)
+    z0 = torch.as_tensor(z0, dtype=env_ens.dtype, device=env_ens.device).expand(p0.shape)
+    T, z, p, n_surf, n_bott, death, _ = _tangent_loop(st, z0, p0, dp0, None, save=False)
+    return T.v, z.v, p.v, T.t, z.t, p.t, n_surf, n_bott, death
 
 
 # ---------------------------------------------------------------------------

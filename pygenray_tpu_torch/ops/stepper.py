@@ -1,10 +1,13 @@
 """The CUDA trace kernels: wrappers, support tests and plain versions.
 
-Counterparts of three Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``:
+Counterparts of four Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``:
 
 * ``trace_kernel`` — the forward mega-kernel (``trace_pallas``, :2733), in
   CUDA C++ ``csrc/trace_fan.cu``: one thread per ray integrates every step
-  of every segment in registers and writes the save grid.
+  of every segment in registers and writes the save grid.  Spectral
+  profiles (Horner or Clenshaw) and, in its segment mode, the piecewise
+  fits of rough fields (local Horner or Clenshaw over a per-ray segment
+  pick).
 * ``trace_tangent_kernel`` — the final-state forward-tangent kernel
   (``trace_pallas_tangent``, :1161), in ``csrc/trace_tangent.cu``: the same
   step on (value, tangent) pairs, final state only; the Newton engine of
@@ -15,17 +18,25 @@ Counterparts of three Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``
   seeded in ``p0`` and ``z0``, with the state and its tangent written at
   every save point; the engine of autograd through ``trace`` and of the
   receiver side (amplitudes, impulse responses, transmission-loss fields).
+* ``trace_tangent_ensemble_kernel`` — the ensemble forward-tangent kernel
+  (``trace_pallas_tangent_ensemble``, :1258), in
+  ``csrc/trace_tangent_ens.cu``: the final-state tangent kernel over E
+  realizations of a range-dependent field at once; the Newton engine of
+  the Monte-Carlo eigenray search.
 
-All cover spectral profiles (Horner or Clenshaw; range-independent, or
-range-dependent through per-step blended coefficient rows) with a constant
-or Chebyshev bottom angle, in float32.  The kernels are built by
-``ops/_build.py``.  On a CUDA tensor a wrapper launches its kernel or
-raises on what it cannot run; it never falls back.  On a CPU tensor it
-runs the kernel's plain version, the torch-op loop whose arithmetic the
-kernel reproduces expression for expression: ``integrate._trace_impl``,
-``integrate._trace_tangent_impl`` and ``integrate._trace_tangent_save_impl``.
-All read the per-step data of
-``integrate._step_data``, so kernel and plain version see the same numbers.
+The tangent kernels cover spectral profiles only (Horner or Clenshaw;
+range-independent, or range-dependent through per-step blended
+coefficient rows); all cover a constant or Chebyshev bottom angle, in
+float32.  The kernels are built by ``ops/_build.py``.  On a CUDA tensor a
+wrapper launches its kernel or raises on what it cannot run; it never
+falls back.  On a CPU tensor it runs the kernel's plain version, the
+torch-op loop whose arithmetic the kernel reproduces expression for
+expression: ``integrate._trace_impl``, ``integrate._trace_tangent_impl``,
+``integrate._trace_tangent_save_impl`` and
+``integrate._trace_tangent_ens_impl``.  All read the per-step data of
+``integrate._step_data`` (and, in the fan kernel's range-dependent segment
+mode, the station indices and weights of ``integrate._station_iw``), so
+kernel and plain version see the same numbers.
 """
 
 from __future__ import annotations
@@ -37,49 +48,87 @@ import math
 import numpy as np
 import torch
 
+from ..envdata import env_member
 from ..integrate import (
-    TraceResult, _as_batch, _save_ranges, _step_data, _trace_impl, _trace_tangent_impl,
-    _trace_tangent_save_impl, _use_cheb,
+    TraceResult, _as_batch, _ens_step_data, _save_ranges, _station_iw, _step_data, _step_ranges,
+    _trace_impl, _trace_tangent_ens_impl, _trace_tangent_impl, _trace_tangent_save_impl,
+    _use_cheb, _use_seg,
 )
 from ..utils.cache import LRUCache, env_struct_key
 
 __all__ = [
     "kernel_supported", "tangent_supported", "trace_kernel", "trace_tangent_kernel",
-    "trace_tangent_save_kernel", "LAUNCHES", "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES",
+    "trace_tangent_save_kernel", "trace_tangent_ensemble_kernel", "LAUNCHES", "SEG_LAUNCHES",
+    "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES", "TANGENT_ENS_LAUNCHES",
 ]
 
 # Numbers of kernel launches since import (or since a caller reset them):
 # a run can show that its main path went through each kernel.
 LAUNCHES = 0  # trace_fan_f32
+SEG_LAUNCHES = 0  # trace_fan_f32 in its segment mode (counted in LAUNCHES too)
 TANGENT_LAUNCHES = 0  # trace_tangent_f32
 TANGENT_SAVE_LAUNCHES = 0  # trace_tangent_save_f32
+TANGENT_ENS_LAUNCHES = 0  # trace_tangent_ens_f32
 
 MAX_K = 256  # coefficient rows held in shared memory (csrc TF_MAX_K)
 MAX_KB = 128  # bottom-angle series length (csrc TF_MAX_KB)
+# bytes of a range-independent segment fit's two (Ks, S) tables in shared
+# memory (csrc TF_MAX_SEG_SMEM; the card gives a block 227 KB)
+MAX_SEG_SMEM = 200 * 1024
 
 
-def kernel_supported(env, settings) -> bool:
-    """True when the CUDA kernels cover this configuration: a spectral
-    (Chebyshev) profile, range-independent or range-dependent, constant or
-    Chebyshev bottom angle, float32.  (The JAX package's
-    ``pallas_supported`` narrowed to these kernels: the segment mode is a
-    later kernel.)"""
+def _seg_mode(env, settings) -> int:
+    """The fan kernel's profile mode: 0 spectral (or no kernel mode: a
+    table profile), 1 the segment fit in basis "pow" (Horner), 2 in basis
+    "cheb" (Clenshaw)."""
+    if _use_cheb(env, settings):
+        return 0
+    try:
+        if not _use_seg(env, settings):
+            return 0
+    except ValueError:  # interp="seg" on an environment without the fit
+        return 0
+    return 2 if env.seg_basis == "cheb" else 1
+
+
+def tangent_supported(env, settings) -> bool:
+    """True when the CUDA forward-tangent kernels (final-state, save-grid
+    and ensemble) cover this configuration: a spectral (Chebyshev) profile,
+    range-independent or range-dependent, constant or Chebyshev bottom
+    angle, float32 (the JAX package's ``tangent_supported``,
+    ``ops/pallas_stepper.py:722``: the tangent kernels have no segment
+    mode).  They never compensate (no Kahan), whatever ``settings.kahan``
+    says."""
     return (
         _use_cheb(env, settings)
         and env.bangle_mode in ("const", "cheb")
         and env.dtype == torch.float32
         and env.c_cheb.shape[-1] <= MAX_K
-        and env.bangle_cheb.shape[0] <= MAX_KB
+        and env.bangle_cheb.shape[-1] <= MAX_KB
     )
 
 
-def tangent_supported(env, settings) -> bool:
-    """True when the CUDA forward-tangent kernels (final-state and
-    save-grid) cover this configuration:
-    what ``kernel_supported`` admits (counterpart of the JAX package's
-    ``tangent_supported``, ``ops/pallas_stepper.py:722``).  The tangent
-    kernel never compensates (no Kahan), whatever ``settings.kahan`` says."""
-    return kernel_supported(env, settings)
+def kernel_supported(env, settings) -> bool:
+    """True when the CUDA fan kernel covers this configuration: what
+    ``tangent_supported`` admits, and the segment profiles of rough fields
+    (basis "pow" or "cheb"), range-independent or range-dependent, with a
+    constant or Chebyshev bottom angle in float32 (the JAX package's
+    ``pallas_supported``, ``ops/pallas_stepper.py:72``).  Its
+    ``seg_kernel_ok`` caps a range-dependent segment fit at what the TPU's
+    vector memory holds; the CUDA kernel reads those tables from device
+    memory and needs no cap.  A range-independent segment fit's tables go
+    to shared memory (``MAX_SEG_SMEM``)."""
+    if tangent_supported(env, settings):
+        return True
+    if not _seg_mode(env, settings):
+        return False
+    Ks, S = env.c_seg.shape[-2:]
+    return (
+        env.bangle_mode in ("const", "cheb")
+        and env.dtype == torch.float32
+        and env.bangle_cheb.shape[-1] <= MAX_KB
+        and (env.range_dependent or 8 * Ks * S <= MAX_SEG_SMEM)
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +150,9 @@ class LaunchConsts:
     kahan: bool
     use_pow: bool
     any_x_oob: bool
+    seg: int  # profile mode (_seg_mode): 0 spectral, 1 segment Horner, 2 segment Clenshaw
+    seg_zlo: float  # segment pick: t = (z - seg_zlo) * seg_hinv
+    seg_hinv: float
 
 
 def _launch_consts(env, settings, x0, h, nsteps):
@@ -130,6 +182,9 @@ def _launch_consts(env, settings, x0, h, nsteps):
         kahan=bool(settings.kahan),
         use_pow=bool(env.poly_ok),
         any_x_oob=bool(xoob.any()),
+        seg=_seg_mode(env, settings),
+        seg_zlo=zlo,
+        seg_hinv=float(env.c_seg.shape[-1]) / (zhi - zlo),
     )
     return consts, xoob
 
@@ -155,18 +210,23 @@ def _launch_setup(env, settings, geom):
 
 @dataclasses.dataclass(frozen=True)
 class _Inputs:
-    """The device operands every kernel reads, in launch order."""
+    """The device operands the kernels read, in launch order."""
 
-    z0: torch.Tensor
-    p0: torch.Tensor
+    z0: torch.Tensor | None
+    p0: torch.Tensor | None
     consts: LaunchConsts
-    ccoef: torch.Tensor  # (K,) the initial right-hand side's rows ...
-    cpcoef: torch.Tensor  # ... (every step's, range-independent)
+    ccoef: torch.Tensor  # the initial right-hand side's rows (K,) or (E, K), or
+    cpcoef: torch.Tensor  # segment tables: (Ks, S), range-dependent (nr, Ks, S)
     bacoef: torch.Tensor  # (Kb,) bottom-angle series
     b0s: torch.Tensor  # (nsteps,) bathymetry at each step's start and end
     b1s: torch.Tensor
     xoob: torch.Tensor  # (nsteps,) bool, one byte each
-    rows: tuple  # range-dependent: (c_m, cp_m, c_1, cp_1), each (nsteps, K)
+    rows: tuple  # spectral, range-dependent: (c_m, cp_m, c_1, cp_1), each (nsteps, K)
+    rd: bool  # range-dependent
+    # segment mode, range-dependent: station index and weight at the launch
+    # range, then at each step's middle and end, (2 nsteps + 1,)
+    st_i: torch.Tensor | None = None
+    st_w: torch.Tensor | None = None
 
     def pointers(self):
         """Device addresses, in launch order (every tensor here is
@@ -178,19 +238,41 @@ class _Inputs:
                           *rows)]
 
 
+def _seg_station_iw(env, geom):
+    """The segment-mode kernel's station rows: ``(st_i, st_w)``, the
+    interval index and weight (``integrate._station_iw``) at the launch
+    range, then at step k's middle (entry 2k + 1) and end (2k + 2): the
+    numbers the plain version blends its tables with."""
+    _, xsm, xs1 = _step_ranges(env, geom)
+    i0, w0 = _station_iw(env, torch.tensor(geom[0], dtype=env.dtype, device=env.device))
+    im, wm = _station_iw(env, xsm)
+    i1, w1 = _station_iw(env, xs1)
+    flat = lambda a0, am, a1: torch.cat([a0.reshape(1), torch.stack([am, a1], 1).reshape(-1)])
+    return flat(i0, im, i1).to(torch.int32).contiguous(), flat(w0, wm, w1).contiguous()
+
+
 def _inputs(env, z0, p0, geom, settings) -> _Inputs:
     """Launch operands, computed by the plain version's own code
     (``integrate._step_data``) so the kernel reads its exact numbers."""
     z0v, p0v = _as_batch(env, z0, p0)
     consts, xoob = _launch_setup(env, settings, geom)
-    sd = _step_data(env, geom, True, consts.use_pow, False, settings.bbox_tol, xoob)
-    rows = ()
-    if env.range_dependent:
-        rows = tuple(t.contiguous() for t in (*sd.prof_ms, *sd.prof_1s))
+    seg, rd = consts.seg, bool(env.range_dependent)
+    # a range-dependent segment fit stays unblended: the kernel blends at
+    # each coefficient pick
+    sd = _step_data(env, geom, seg == 0, consts.use_pow, seg != 0, settings.bbox_tol, xoob,
+                    blend=not (seg and rd))
+    rows, st_i, st_w = (), None, None
+    if seg and rd:
+        ccoef, cpcoef = env.c_seg, env.dcdz_seg
+        st_i, st_w = _seg_station_iw(env, geom)
+    else:
+        ccoef, cpcoef = sd.prof0
+        if rd:
+            rows = tuple(t.contiguous() for t in (*sd.prof_ms, *sd.prof_1s))
     return _Inputs(
-        z0v.contiguous(), p0v.contiguous(), consts, sd.prof0[0].contiguous(),
-        sd.prof0[1].contiguous(), env.bangle_cheb.contiguous(), sd.b0s.contiguous(),
-        sd.b1s.contiguous(), sd.oob_step.contiguous(), rows,
+        z0v.contiguous(), p0v.contiguous(), consts, ccoef.contiguous(), cpcoef.contiguous(),
+        env.bangle_cheb.contiguous(), sd.b0s.contiguous(), sd.b1s.contiguous(),
+        sd.oob_step.contiguous(), rows, rd, st_i, st_w,
     )
 
 
@@ -198,25 +280,30 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _IN = [_P] * 10  # ccoef cpcoef bacoef b0s b1s xoob c_m cp_m c_1 cp_1 (_Inputs.pointers)
-_FLOATS = [_F] * 11  # x0 h zlo_m zhi_p sc off sin_lim s2b c2b b_sum b_span
+# every kernel ends with: any_x_oob rd, x0 h zlo_m zhi_p sc off sin_lim s2b c2b b_sum
+# b_span, stream (_launch)
+_TAIL = [_I] * 2 + [_F] * 11 + [_P]
 _ARGTYPES = {
     "trace_fan_f32": (
-        [_P] * 2 + _IN  # p0 z0, inputs
+        [_P] * 2 + _IN + [_P] * 2  # p0 z0, inputs, st_i st_w
         + [_P] * 7  # ts zs ps n_surf n_bott death dseg
-        + [_I] * 11  # B K Kb nseg sps use_pow bangle_cheb term_back kahan any_x_oob rd
-        + _FLOATS + [_P]  # stream
+        + [_I] * 11  # B K Kb nseg sps use_pow bangle_cheb term_back kahan seg S
+        + [_F] * 2 + _TAIL  # seg_zlo seg_hinv
     ),
     "trace_tangent_f32": (
         [_P] * 3 + _IN  # p0 dp0 z0, inputs
         + [_P] * 9  # T z p dT dz dp n_surf n_bott death
-        + [_I] * 9  # B K Kb nsteps use_pow bangle_cheb term_back any_x_oob rd
-        + _FLOATS + [_P]  # stream
+        + [_I] * 7 + _TAIL  # B K Kb nsteps use_pow bangle_cheb term_back
     ),
     "trace_tangent_save_f32": (
         [_P] * 4 + _IN  # p0 dp0 z0 dz0, inputs
         + [_P] * 10  # T z p dT dz dp (nseg+1, B), n_surf n_bott death dseg (B,)
-        + [_I] * 10  # B K Kb nseg sps use_pow bangle_cheb term_back any_x_oob rd
-        + _FLOATS + [_P]  # stream
+        + [_I] * 8 + _TAIL  # B K Kb nseg sps use_pow bangle_cheb term_back
+    ),
+    "trace_tangent_ens_f32": (
+        [_P] * 2 + [_F] + _IN  # p0 dp0 (E, M), z0, inputs
+        + [_P] * 9  # T z p dT dz dp n_surf n_bott death (E, M)
+        + [_I] * 8 + _TAIL  # E M K Kb nsteps use_pow bangle_cheb term_back
     ),
 }
 _FNS = {}
@@ -236,16 +323,15 @@ def _kernel_fn(name):
     return fn
 
 
-def _launch(name, dev, pointers, ints, inp, geom):
+def _launch(name, dev, args, inp, geom):
     """Call a kernel's C entry point on the current stream of ``dev``:
-    its pointers, its own integers, then the arguments every kernel ends
-    with."""
+    its own arguments, then those every kernel ends with."""
     c = inp.consts
     x0, _, h, _, _ = geom
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn(name)(
-            *pointers, *ints, int(c.any_x_oob), int(bool(inp.rows)),
+            *args, int(c.any_x_oob), int(inp.rd),
             x0, h, c.zlo_m, c.zhi_p, c.sc, c.off, c.sin_lim, c.s2b, c.c2b, c.b_sum,
             c.b_span, stream,
         )
@@ -268,7 +354,7 @@ def trace_kernel(env, z0, p0, geom, settings) -> TraceResult:
     ``integrate._plan``.  On a CUDA environment this launches the kernel or
     raises; on a CPU environment it runs the plain version, ``_trace_impl``.
     """
-    global LAUNCHES
+    global LAUNCHES, SEG_LAUNCHES
     if not kernel_supported(env, settings):
         raise ValueError("configuration not covered by the CUDA trace kernel")
     dev = _check_device(env, "trace_kernel")
@@ -289,13 +375,17 @@ def trace_kernel(env, z0, p0, geom, settings) -> TraceResult:
     if B > 0:
         c = inp.consts
         outs = (ts, zs, ps, n_surf, n_bott, death, dseg)
+        # series terms and segments: (K,) rows, or (..., Ks, S) segment tables
+        K, S = (inp.ccoef.shape[-2], inp.ccoef.shape[-1]) if c.seg else (inp.ccoef.shape[0], 1)
+        st = [None if t is None else t.data_ptr() for t in (inp.st_i, inp.st_w)]
         _launch("trace_fan_f32", dev,
-                [inp.p0.data_ptr(), inp.z0.data_ptr(), *inp.pointers(),
-                 *(o.data_ptr() for o in outs)],
-                (B, inp.ccoef.shape[0], inp.bacoef.shape[0], nseg, sps, int(c.use_pow),
-                 int(c.bangle_cheb), int(c.term_back), int(c.kahan)),
+                [inp.p0.data_ptr(), inp.z0.data_ptr(), *inp.pointers(), *st,
+                 *(o.data_ptr() for o in outs),
+                 B, K, inp.bacoef.shape[0], nseg, sps, int(c.use_pow), int(c.bangle_cheb),
+                 int(c.term_back), int(c.kahan), c.seg, S, c.seg_zlo, c.seg_hinv],
                 inp, geom)
         LAUNCHES += 1
+        SEG_LAUNCHES += bool(c.seg)
 
     # alive at save point k  <=>  k precedes the ray's first-dead save index
     alive_save = torch.arange(num_save, dtype=torch.int32, device=dev)[None, :] < dseg[:, None]
@@ -339,9 +429,9 @@ def trace_tangent_kernel(env, z0, p0, dp0, geom, settings):
         c = inp.consts
         _launch("trace_tangent_f32", dev,
                 [inp.p0.data_ptr(), dp0v.data_ptr(), inp.z0.data_ptr(), *inp.pointers(),
-                 *(o.data_ptr() for o in outs)],
-                (B, inp.ccoef.shape[0], inp.bacoef.shape[0], sps * nseg, int(c.use_pow),
-                 int(c.bangle_cheb), int(c.term_back)),
+                 *(o.data_ptr() for o in outs),
+                 B, inp.ccoef.shape[0], inp.bacoef.shape[0], sps * nseg, int(c.use_pow),
+                 int(c.bangle_cheb), int(c.term_back)],
                 inp, geom)
         TANGENT_LAUNCHES += 1
     return outs
@@ -381,9 +471,9 @@ def trace_tangent_save_kernel(env, z0, p0, dp0, geom, settings, dz0=None):
         _launch("trace_tangent_save_f32", dev,
                 [inp.p0.data_ptr(), dp0v.data_ptr(), inp.z0.data_ptr(), dz0v.data_ptr(),
                  *inp.pointers(), *(o.data_ptr() for o in grids),
-                 *(o.data_ptr() for o in (n_surf, n_bott, death, dseg))],
-                (B, inp.ccoef.shape[0], inp.bacoef.shape[0], nseg, sps, int(c.use_pow),
-                 int(c.bangle_cheb), int(c.term_back)),
+                 *(o.data_ptr() for o in (n_surf, n_bott, death, dseg)),
+                 B, inp.ccoef.shape[0], inp.bacoef.shape[0], nseg, sps, int(c.use_pow),
+                 int(c.bangle_cheb), int(c.term_back)],
                 inp, geom)
         TANGENT_SAVE_LAUNCHES += 1
 
@@ -395,3 +485,55 @@ def trace_tangent_save_kernel(env, z0, p0, dp0, geom, settings, dz0=None):
         alive=death == 0, alive_save=alive_save, death_code=death,
     )
     return res, (dts, dzs, dps)
+
+
+def trace_tangent_ensemble_kernel(env_ens, z0, p0, dp0, geom, settings, sd=None):
+    """Final-state trace with one forward tangent across an ensemble
+    through the CUDA kernel: realization e's (M,) launch parameters
+    ``p0[e]`` and seeds ``dp0[e]`` against its own range-dependent field;
+    returns ``(T, z, p, dT, dz, dp, n_surf, n_bott, death)``, each (E, M),
+    in the ODE convention (counterpart of ``trace_pallas_tangent_ensemble``).
+    ``env_ens`` is a stacked ensemble (``make_env_ensemble``) whose
+    realizations share their bathymetry; ``z0`` is one scalar source depth;
+    no Kahan compensation.  ``sd`` is the ensemble's step data
+    (``integrate._ens_step_data``), which a caller that launches more than
+    once (the Monte-Carlo Newton loop) builds once; built here when None.
+
+    On a CUDA ensemble this launches the kernel or raises; on a CPU
+    ensemble it runs the plain version, ``_trace_tangent_ens_impl``.
+    """
+    global TANGENT_ENS_LAUNCHES
+    if torch.as_tensor(z0).ndim != 0:
+        raise ValueError("the ensemble tangent kernel takes a scalar source depth (got shape "
+                         f"{tuple(torch.as_tensor(z0).shape)}); per-candidate depths are "
+                         "unsupported")
+    env0 = env_member(env_ens, 0)
+    if not tangent_supported(env0, settings):
+        raise ValueError("configuration not covered by the CUDA ensemble tangent kernel")
+    dev = _check_device(env_ens, "trace_tangent_ensemble_kernel")
+    if sd is None:
+        sd = _ens_step_data(env_ens, geom, settings)
+    if dev.type == "cpu":
+        return _trace_tangent_ens_impl(env_ens, z0, p0, dp0, geom, settings, sd)
+
+    p0 = torch.as_tensor(p0, dtype=torch.float32, device=dev).contiguous()
+    E, M = p0.shape
+    if E != env_ens.c.shape[0]:
+        raise ValueError(f"p0 has {E} rows for an ensemble of {env_ens.c.shape[0]}")
+    dp0v = torch.as_tensor(dp0, dtype=torch.float32, device=dev).expand(E, M).contiguous()
+    outs = tuple(torch.empty((E, M), dtype=torch.float32, device=dev) for _ in range(6)) + tuple(
+        torch.empty((E, M), dtype=torch.int32, device=dev) for _ in range(3))
+    if M > 0:
+        # realization e's rows at offset e * nsteps * K; bathymetry, bottom
+        # angle and launch constants from realization 0
+        c, _ = _launch_setup(env0, settings, geom)
+        inp = _Inputs(None, None, c, *sd.prof0, env0.bangle_cheb.contiguous(), sd.b0s, sd.b1s,
+                      sd.oob_step, (*sd.prof_ms, *sd.prof_1s), True)
+        _launch("trace_tangent_ens_f32", dev,
+                [p0.data_ptr(), dp0v.data_ptr(), float(z0), *inp.pointers(),
+                 *(o.data_ptr() for o in outs),
+                 E, M, inp.ccoef.shape[1], inp.bacoef.shape[0], geom[3] * geom[4],
+                 int(c.use_pow), int(c.bangle_cheb), int(c.term_back)],
+                inp, geom)
+        TANGENT_ENS_LAUNCHES += 1
+    return outs

@@ -194,6 +194,31 @@ def test_table_interp_jvp_path_matches_jax():
     assert_eigenrays_match(ej, et, 1, *TOL["float64"])
 
 
+def test_segment_profile_never_reaches_the_tangent_kernels(monkeypatch):
+    """A segment fit runs on the fan kernel (B1d) but has no
+    forward-tangent kernel, in either package (``tangent_supported`` needs
+    a spectral fit): Newton runs ``torch.func.jvp`` over the torch-op loop
+    and never calls the tangent kernel's wrapper, and finds the JAX
+    package's arrivals."""
+    from pygenray_tpu_torch.ops import stepper
+
+    kw = dict(flatearth=False, dx=3000.0)
+    args = _tables()
+    je = jp.make_env_data(*args, interp="seg", dtype=jnp.float32)
+    te = tp.make_env_data(*args, interp="seg", device="cpu", dtype=torch.float32)
+    s = tp.SolverSettings(dx=3000.0)
+    assert te.has_seg and stepper.kernel_supported(te, s) and not stepper.tangent_supported(te, s)
+    calls = []
+    monkeypatch.setattr(stepper, "trace_tangent_kernel", lambda *a, **k: calls.append(a))
+    n0 = stepper.TANGENT_LAUNCHES
+    tf = tp.shoot_rays(1300.0, 0.0, np.linspace(-12.0, 12.0, 8), R, 2, te, **kw)
+    ej = jp.find_eigenrays(tf, [1300.0], 1300.0, 0.0, R, 2, je, ztol=ZTOL, **kw)
+    et = tp.find_eigenrays(tf, [1300.0], 1300.0, 0.0, R, 2, te, ztol=ZTOL, **kw)
+    assert not calls and stepper.TANGENT_LAUNCHES == n0
+    assert et.num_eigenrays_found[0] >= 2
+    assert_eigenrays_match(ej, et, 1, *TOL["float32"])
+
+
 def test_batch_matches_per_config_calls(envs):
     _, te, _, _ = envs["float64"]
     sources = [1100.0, 1500.0]

@@ -165,32 +165,36 @@ def _settings(**kw):
 @pytest.mark.parametrize(
     "kind,dtype,skw,expect",
     [
-        ("flat", "float32", {}, True),  # Horner, constant bottom angle
-        ("curved", "float32", {}, True),  # Chebyshev bottom angle
-        ("flat", "float32", {"kahan": False, "terminate_backwards": False}, True),
-        ("flat", "float64", {}, False),  # f64: the torch-op loop
-        ("flat", "float32", {"interp": "table"}, False),
-        ("rd", "float32", {}, True),  # range-dependent: per-step rows (B1c)
-        ("seg", "float32", {}, False),  # segment mode: a later kernel
-        ("table", "float32", {}, False),
-        ("spline", "float32", {}, False),  # spline bottom angle
+        ("flat", "float32", {}, (True, True)),  # Horner, constant bottom angle
+        ("curved", "float32", {}, (True, True)),  # Chebyshev bottom angle
+        ("flat", "float32", {"kahan": False, "terminate_backwards": False}, (True, True)),
+        ("flat", "float64", {}, (False, False)),  # f64: the torch-op loop
+        ("flat", "float32", {"interp": "table"}, (False, False)),
+        ("rd", "float32", {}, (True, True)),  # range-dependent: per-step rows (B1c)
+        ("seg", "float32", {}, (True, False)),  # segment mode: the fan kernel only (B1d)
+        ("table", "float32", {}, (False, False)),
+        ("spline", "float32", {}, (False, False)),  # spline bottom angle
     ],
 )
 def test_kernel_supported_truth_table(kind, dtype, skw, expect):
-    """``kernel_supported`` is ``pallas_supported`` narrowed to the spectral
-    variants (range-independent or range-dependent); ``tangent_supported``
-    is the JAX package's, which admits the same configurations."""
+    """``kernel_supported`` (the fan kernel) is the JAX package's
+    ``pallas_supported`` and ``tangent_supported`` (the tangent kernels,
+    spectral only) its ``tangent_supported``.  For a range-dependent
+    segment fit ``pallas_supported`` also asks ``seg_kernel_ok`` whether
+    the station tables fit the TPU's vector memory (2 nr Ks S floats under
+    6 MB); the CUDA kernel reads them from device memory, so the port
+    admits the larger fits that cap refuses."""
     je, te = env_pair(kind, dtype)
     js, ts = _settings(**skw)
     use_cheb = j_use_cheb(je, js)
-    narrowed = pallas_supported(je, js, use_cheb) and use_cheb
-    assert kernel_supported(te, ts) == narrowed == expect
-    assert tangent_supported(te, ts) == j_tangent_supported(je, js, use_cheb) == expect
-    if not expect:
+    assert kernel_supported(te, ts) == pallas_supported(je, js, use_cheb) == expect[0]
+    assert tangent_supported(te, ts) == j_tangent_supported(je, js, use_cheb) == expect[1]
+    if not expect[0]:
         with pytest.raises(ValueError):
             trace_kernel(te, 1300.0, np.zeros(2), (0.0, 1e3, 500.0, 1, 2), ts)
         with pytest.raises(ValueError, match="unsupported"):
             trace(te, 1300.0, np.zeros(2), 0.0, 1e3, 2, dataclasses.replace(ts, backend="kernel"))
+    if not expect[1]:
         with pytest.raises(ValueError):
             trace_tangent_kernel(te, 1300.0, np.zeros(2), 1.0, (0.0, 1e3, 500.0, 1, 2), ts)
 
@@ -233,7 +237,8 @@ def test_build_flags_and_source_hash(monkeypatch):
     flags = _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert not any("fast_math" in f for f in flags)
-    assert _build.sources() == ["trace_fan", "trace_tangent", "trace_tangent_save"]
+    assert _build.sources() == ["trace_fan", "trace_tangent", "trace_tangent_ens",
+                                "trace_tangent_save"]
     for name in _build.sources():
         src = (_build.CSRC / f"{name}.cu").read_text()
         entry = f'extern "C" int {name}_f32('
