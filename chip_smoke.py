@@ -34,7 +34,15 @@ Monte-Carlo paths give them, drives
 × 65,536 rays and over ``bench.py``'s 16-realization rough field at full
 width, and ``mc_eigenray_times`` at config 4b, and holds the Monte-Carlo
 answers to the JAX package's (``tests/fixtures/mc_jax_f32.npz``, written by
-``tests/fixtures/make_mc_fixture.py``).  Each phase prints
+``tests/fixtures/make_mc_fixture.py``).  Adjoint: it holds the
+coefficient-tangent kernels (``trace_coef_tangent.cu``,
+``trace_coef_tangent_rd.cu``) to their plain versions at ``bench.py``'s two
+Jacobian shapes and on a bottom-bouncing fan, drives
+``travel_time_jacobian`` / ``travel_time_jacobian_2d`` and
+``examples/gradient_inversion_demo.py``'s 150-step inversion through
+``travel_times_of_coef`` at full size, and holds every adjoint operator to
+the JAX package's answers (``tests/fixtures/adjoint_jax_f32.npz``, written
+by ``tests/fixtures/make_adjoint_fixture.py``).  Each phase prints
 one line; the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero without that line.  It needs no network and
 imports no JAX.
@@ -60,6 +68,7 @@ ORACLE_RD = FIXTURES / "bench_oracle_rd.npz"
 EIGEN_JAX = FIXTURES / "eigen_jax_f32.npz"
 RECEIVER_JAX = FIXTURES / "receiver_jax_f32.npz"
 MC_JAX = FIXTURES / "mc_jax_f32.npz"
+ADJOINT_JAX = FIXTURES / "adjoint_jax_f32.npz"
 
 # the headline fan (BASELINE config 0; the JAX package's bench.py)
 R_MAX = 100e3
@@ -144,6 +153,33 @@ ROUGH_TIME_MEDIAN_S = 1e-5
 ROUGH_TIME_S = 1e-4
 ROUGH_TIME_SHARE = 0.8
 ORACLE_BUDGET_MS = 0.1  # BASELINE.json travel-time budget
+# adjoint: bench.py's spectral Jacobian (:511-535, the headline field, 512
+# rays over ±14°, 100 km, dx = 200 m) and a bottom-bouncing fan on the same
+# field; its range-dependent Jacobian (:638-664: 32 stations of a Munk
+# profile whose axis deepens 2 m/km, nz = 2000, flat 5500 m bottom, 16
+# terms, 64 rays over ±12°, dx = 100 m); examples/gradient_inversion_demo.py
+# at its full parameters
+JAC_RAYS, JAC_SPAN, JAC_BOUNCE_SPAN = 512, 14.0, 30.0
+JAC2 = {"nz": 2000, "nr": 32, "rays": 64, "span": 12.0, "dx": 100.0, "order": 15}
+INV = {"r_max": 60e3, "nr": 9, "K": 32, "B": 128, "iters": 150, "nz": 1200, "dx": 200.0,
+       "lr": 0.03, "lam": 1e-10, "drop": 0.05}
+# Σ_j of the range-dependent Jacobian against the range-independent one on
+# the same field in the range-dependent layout: the blended rows
+# (1 - w) c + w c round away from c, so the two traces part by float32
+# rounding, bounded at 1e-4 of the largest entry
+STATION_SUM_REL = 1e-4
+# the adjoint operators against the JAX package (tests/test_adjoint.py's
+# bounds: T within 1e-4 s, Jacobians within 2e-3 (range-independent) and
+# 3e-3 (range-dependent) of the largest entry, the vjp within 3e-3); the
+# spectral Fermat operators within 1e-4 of the largest entry, the segment
+# one within 1e-3 (a rough field's float32 paths part where rounding moves
+# a save point across a segment boundary: ROADMAP C), the endpoint
+# gradients within 1e-9 s/m (the port's CPU tests' bounds)
+ADJ_T_S = 1e-4
+ADJ_J_REL = {"ri": 2e-3, "rd": 3e-3, "vjp": 3e-3, "fermat": 1e-4, "fermat_seg": 1e-3}
+ADJ_GRAD = 1e-9
+COUNTERS = ("LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES",
+            "TANGENT_ENS_LAUNCHES", "COEF_TANGENT_LAUNCHES", "COEF_TANGENT_RD_LAUNCHES")
 # final depth vs the oracle: the depth a 15-degree ray crosses within the
 # travel-time budget, 0.1 ms * 1500 m/s / sin(15 deg) = 0.58 m, rounded down
 ORACLE_DEPTH_M = 0.5
@@ -1129,6 +1165,428 @@ def mc_vs_jax_phase(cx):
             f"within {ROUGH_TIME_S} s")
 
 
+def counted(cx, fn):
+    """``(result, wall seconds, {counter: launches})`` of one synchronized
+    call, every launch count set to 0 just before."""
+    st = cx.stepper
+    cx.torch.cuda.synchronize()
+    for c in COUNTERS:
+        setattr(st, c, 0)
+    t0 = time.perf_counter()
+    out = fn()
+    cx.torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {c: getattr(st, c) for c in COUNTERS}
+
+
+def require_counts(name, got, **want):
+    """Every launch count is 0 but those named."""
+    full = {c: want.get(c, 0) for c in COUNTERS}
+    require(got == full, f"{name}: launches {got}, expected {full}")
+
+
+def unit_directions(cx, env):
+    """The K unit coefficient directions (dc = e_k, dc/dz chained through
+    the Chebyshev derivative matrix), float32 on the card."""
+    from pygenray_tpu_torch.adjoint import cheb_derivative_matrix
+
+    K = env.c_cheb.shape[-1]
+    Dm = cheb_derivative_matrix(K, *env.z_dom)
+    return (cx.torch.eye(K, dtype=cx.torch.float32, device=cx.dev), on_card(cx, Dm.T))
+
+
+def coef_step_ops(env):
+    """FP32 operations of one coefficient-tangent ray-step, counted from
+    tangent_step.cuh and dual.cuh: four right-hand sides of two K-term
+    Clenshaw series on Duals with Dual coefficients (11 a term: 2u, its
+    product with b1, the coefficient's hat product and sum, the
+    subtraction; 7 to close), and the rest of the step at DUAL_FACTOR times
+    the forward step's (18 a right-hand side, 50 for the rest)."""
+    K = env.c_cheb.shape[-1]
+    return 4 * (2 * ((K - 1) * 11 + 7) + 18 * DUAL_FACTOR) + 50 * DUAL_FACTOR
+
+
+def coef_bound(out, env, nsteps):
+    """Bound of one coefficient-tangent launch: live rays' steps for every
+    direction (and station), each input read once (launch parameters, the
+    direction tables, per-step inputs; range-dependent: four (nsteps, K)
+    row tables and the station rows), each output written once."""
+    B = out[0].shape[0]
+    dirs = out[3].numel() // max(B, 1)
+    live = int((out[8] == 0).sum())
+    K = env.c_cheb.shape[-1]
+    nbytes = (B * (8 + 24) + out[3].numel() * 12 + 8 * K * out[3].shape[-2]
+              + step_input_bytes(env, nsteps) + (8 * (2 * nsteps + 1) if env.range_dependent
+                                                 else 0))
+    return bound(live * dirs * nsteps * coef_step_ops(env), nbytes)
+
+
+def nan_equal(a, b):
+    """Elementwise equality in which NaN equals NaN."""
+    eq = a == b
+    return eq | (a.isnan() & b.isnan()) if a.is_floating_point() else eq
+
+
+COEF_FIELDS = ("T", "z", "p", "dT", "dz", "dp", "n_surf", "n_bott", "death")
+
+
+def compare_coef(name, out_k, out_p):
+    """Hold a coefficient-tangent kernel to its plain version: every output
+    equal, bit for bit (NaN in both agrees); print the phase line and
+    return the largest |Δ| of each float output (0 when equal)."""
+    import torch
+
+    differing, errs = {}, {}
+    for f, a, b in zip(COEF_FIELDS, out_k, out_p):
+        bad = ~nan_equal(a, b)
+        differing[f] = int(bad.sum())
+        if a.is_floating_point():
+            errs[f] = float((a - b).abs()[bad].max()) if differing[f] else 0.0
+    codes = torch.bincount(out_p[8].long(), minlength=4).tolist()
+    emit("coef_tangent_vs_plain", case=name, rays=int(out_p[0].shape[0]),
+         tangent_shape=list(out_p[3].shape), bounces=int((out_p[6] + out_p[7]).sum()),
+         rays_bouncing=int(((out_p[6] + out_p[7]) > 0).sum()), death_codes=codes,
+         values_differing=differing, max_abs_err=errs)
+    require(sum(differing.values()) == 0, f"{name}: kernel and plain version differ: {differing}")
+    return errs
+
+
+def coef_lockstep(name, out_c, out_b2):
+    """The coefficient-tangent kernel's primal and counters are the
+    final-state tangent kernel's on the same Clenshaw environment, bit for
+    bit."""
+    same = all(bool(nan_equal(out_c[i], out_b2[i]).all()) for i in (0, 1, 2, 6, 7, 8))
+    emit("coef_tangent_primal_vs_tangent_kernel", case=name, equal=same)
+    require(same, f"{name}: coefficient-tangent primal differs from the tangent kernel's")
+
+
+def adjoint_context(cx):
+    """The fields of the adjoint phases: bench.py's two Jacobian fields, the
+    headline field in the range-dependent layout, and their fans."""
+    torch, pt = cx.torch, cx.pt
+    z = np.linspace(0.0, 6000.0, NZ)
+    r = np.linspace(0.0, R_MAX, NR)
+    cx.env_hrd = pt.make_env_data(np.outer(np.ones(NR), pt.munk_ssp(z)), r, z,
+                                  np.full(NR, 5000.0), r, dtype=torch.float32, device=cx.dev,
+                                  force_range_dependent=True)
+    require(cx.env_hrd.range_dependent and torch.equal(cx.env_hrd.c_cheb[-1], cx.env_h.c_cheb[0]),
+            "the range-dependent copy of the headline field has other coefficients")
+    z2 = np.linspace(0.0, 6000.0, JAC2["nz"])
+    r2 = np.linspace(0.0, R_MAX, JAC2["nr"])
+    c2 = np.array([pt.munk_ssp(z2, sofar_depth=1300 + 0.002 * ri) for ri in r2])
+    cx.env_j2 = pt.make_env_data(c2, r2, z2, np.full(JAC2["nr"], 5500.0), r2,
+                                 dtype=torch.float32, device=cx.dev, cheb_order=JAC2["order"])
+    require(cx.env_j2.range_dependent and cx.env_j2.c_cheb.shape == (JAC2["nr"], 16),
+            "bench.py's 2D Jacobian field is not a 32 x 16 range-dependent fit")
+    cx.s_j2 = pt.SolverSettings(dx=JAC2["dx"], interp="cheb", kahan=False)
+    # bench.py converts angles with the table's speed at the source
+    c_src2 = float(pt.bilinear_np(0.0, SRC_DEPTH, r2, z2, c2))
+    cx.p0_j2 = on_card(cx, np.sin(np.radians(-np.linspace(-JAC2["span"], JAC2["span"],
+                                                          JAC2["rays"]))) / c_src2)
+    cx.p0_jac = {label: on_card(cx, launch_p0(pt, cx.env_h, np.linspace(-span, span, JAC_RAYS)))
+                 for label, span in (("bench", JAC_SPAN), ("bounce", JAC_BOUNCE_SPAN))}
+
+
+def coef_tangent_phase(cx):
+    """B5 and B6 against their plain versions at bench.py's shapes: B5 on
+    the headline field over 512 rays at ±14° and over a bottom-bouncing 512
+    at ±30° (one plain run over both fans side by side: its arithmetic is
+    elementwise over rays), 16 unit directions, 100 km at dx = 200 m; B6 on
+    bench.py's 2D field, 64 rays × 16 directions × 32 stations, 1,000 steps.
+    Each primal against the final-state tangent kernel (B2) on the same
+    Clenshaw environment; Σ_j of B6 over stations against B5 on the
+    headline field in the range-dependent layout.  Returns (worst errors,
+    times)."""
+    import dataclasses as dc
+
+    from pygenray_tpu_torch.integrate import _trace_coef_tangent_impl, _trace_coef_tangent_rd_impl
+
+    torch, st = cx.torch, cx.stepper
+    env, s = cx.env_h, cx.settings
+    h, sps, nseg = cx.plan(0.0, R_MAX, 2, DX)
+    geom = (0.0, R_MAX, h, sps, nseg)
+    dcs, dcps = unit_directions(cx, env)
+    outs, errs = {}, []
+    for label, p0 in cx.p0_jac.items():
+        n0 = st.COEF_TANGENT_LAUNCHES
+        outs[label] = st.trace_coef_tangent_kernel(env, SRC_DEPTH, p0, dcs, dcps, geom, s)
+        require(st.COEF_TANGENT_LAUNCHES == n0 + 1, "the coefficient-tangent kernel did not launch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    both = _trace_coef_tangent_impl(env, SRC_DEPTH, torch.cat(list(cx.p0_jac.values())), dcs,
+                                    dcps, geom, s)
+    torch.cuda.synchronize()
+    plain5_ms = (time.perf_counter() - t0) * 1e3
+    env_c = dc.replace(env, poly_ok=False)
+    lo = 0
+    for label, p0 in cx.p0_jac.items():
+        m = p0.shape[0]
+        out_p = [a[..., lo:lo + m] for a in both]
+        lo += m
+        errs.append(compare_coef(f"b5_{label}", outs[label], out_p))
+        coef_lockstep(f"b5_{label}", outs[label],
+                      st.trace_tangent_kernel(env_c, SRC_DEPTH, p0, 0.0, geom, s))
+    require(int((outs["bounce"][7] > 0).sum()) > 0, "the ±30° fan does not reach the bottom")
+    b5_ms = events_ms(lambda: st.trace_coef_tangent_kernel(env, SRC_DEPTH, cx.p0_jac["bench"],
+                                                           dcs, dcps, geom, s), n=10)
+    b5_bound, b5_by = coef_bound(outs["bench"], env, sps * nseg)
+
+    env2, s2 = cx.env_j2, cx.s_j2
+    h2, sps2, nseg2 = cx.plan(0.0, R_MAX, 2, s2.dx)
+    geom2 = (0.0, R_MAX, h2, sps2, nseg2)
+    d2, dp2 = unit_directions(cx, env2)
+    n0 = st.COEF_TANGENT_RD_LAUNCHES
+    out6 = st.trace_coef_tangent_rd_kernel(env2, SRC_DEPTH, cx.p0_j2, d2, dp2, geom2, s2)
+    require(st.COEF_TANGENT_RD_LAUNCHES == n0 + 1, "the RD coefficient-tangent kernel did not launch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out6_p = _trace_coef_tangent_rd_impl(env2, SRC_DEPTH, cx.p0_j2, d2, dp2, geom2, s2)
+    torch.cuda.synchronize()
+    plain6_ms = (time.perf_counter() - t0) * 1e3
+    errs.append(compare_coef("b6_bench_2d", out6, out6_p))
+    coef_lockstep("b6_bench_2d", out6, st.trace_tangent_kernel(dc.replace(env2, poly_ok=False),
+                                                              SRC_DEPTH, cx.p0_j2, 0.0, geom2,
+                                                              s2))
+    b6_ms = events_ms(lambda: st.trace_coef_tangent_rd_kernel(env2, SRC_DEPTH, cx.p0_j2, d2, dp2,
+                                                              geom2, s2), n=10)
+    b6_bound, b6_by = coef_bound(out6, env2, sps2 * nseg2)
+
+    # the hats of a station sum to one: Σ_j of B6 is B5 on the same field
+    out_hrd = st.trace_coef_tangent_rd_kernel(cx.env_hrd, SRC_DEPTH, cx.p0_jac["bench"], dcs, dcps,
+                                              geom, s)
+    J5 = outs["bench"][3]
+    dev_ = float((out_hrd[3].sum(0) - J5).abs().max())
+    scale = float(J5.abs().max())
+    emit("station_sum_identity", stations=NR, max_abs_err=dev_, largest_entry=scale,
+         bound=STATION_SUM_REL * scale)
+    require(dev_ <= STATION_SUM_REL * scale, f"Σ_j of B6 differs from B5 by {dev_:.3g}")
+    worst_err = {"b5": {f: max(e[f] for e in errs[:-1]) for f in COEF_FIELDS[:6]},
+                 "b6": errs[-1]}
+    times = {
+        "b5": {"rays": JAC_RAYS, "directions": int(dcs.shape[0]), "steps": sps * nseg,
+               "kernel_event_ms": b5_ms, "bound_ms": b5_bound, "bound_by": b5_by,
+               "plain_ms_both_fans": plain5_ms},
+        "b6": {"rays": JAC2["rays"], "directions": int(d2.shape[0]), "stations": JAC2["nr"],
+               "steps": sps2 * nseg2, "kernel_event_ms": b6_ms, "bound_ms": b6_bound,
+               "bound_by": b6_by, "plain_ms": plain6_ms},
+    }
+    emit("times_coef_tangent", card=cx.smi, **times)
+    return worst_err, times, outs["bench"]
+
+
+def adjoint_paths_phase(cx, b5_bench):
+    """bench.py's two Jacobian calls through the user API, the launch
+    counts set to 0 just before each: ``travel_time_jacobian`` (one B5
+    launch and nothing else; its Jacobian is the kernel phase's, bit for
+    bit) and ``travel_time_jacobian_2d`` (one B6 launch); wall medians of 5
+    after a warm-up."""
+    pt = cx.pt
+    out = {}
+    calls = {
+        "jacobian": (lambda: pt.travel_time_jacobian(cx.env_h, SRC_DEPTH, cx.p0_jac["bench"], 0.0,
+                                                     R_MAX, pt.SolverSettings(dx=DX)),
+                     {"COEF_TANGENT_LAUNCHES": 1}, (JAC_RAYS, 16)),
+        "jacobian_2d": (lambda: pt.travel_time_jacobian_2d(cx.env_j2, SRC_DEPTH, cx.p0_j2, 0.0,
+                                                           R_MAX, cx.s_j2),
+                        {"COEF_TANGENT_RD_LAUNCHES": 1}, (JAC2["rays"], JAC2["nr"], 16)),
+    }
+    for name, (fn, want, shape) in calls.items():
+        (T, J), _, n = counted(cx, fn)
+        require_counts(name, n, **want)
+        require(tuple(J.shape) == shape and bool(cx.torch.isfinite(J).all())
+                and bool(cx.torch.isfinite(T).all()), f"{name}: shape {tuple(J.shape)} or "
+                "non-finite values")
+        if name == "jacobian":
+            require(cx.torch.equal(J, b5_bench[3].T) and cx.torch.equal(T, b5_bench[0]),
+                    "travel_time_jacobian differs from the kernel phase's B5 launch")
+        runs = [counted(cx, fn)[1] * 1e3 for _ in range(5)]
+        out[name] = {"launches": {k: v for k, v in n.items() if v}, "shape": list(J.shape),
+                     "median_ms": statistics.median(runs), "runs_ms": runs}
+    emit("adjoint_paths", card=cx.smi, **out)
+    return out
+
+
+def inversion_phase(cx):
+    """examples/gradient_inversion_demo.py at its full parameters through
+    the port: a +3 m/s warm lens at 900 m and 40 % range in a 60 km,
+    9-station Munk field (32 Chebyshev terms, dc/dz consistent, range-
+    dependent layout), 128 rays over ±11°, dx = 200 m, Kahan off, float32;
+    150 Adam steps (lr 0.03) on 0.5 ||f(cc) - T_obs||² + 1e-10 ||cc -
+    cc0||² through ``travel_times_of_coef``.  One step's launches: one fan
+    launch forward, ceil(K / chunk) B6 launches backward.  The misfit must
+    drop 20 times (the demo's 0.05); the held-out correlation the demo
+    prints is reported."""
+    torch, pt, P = cx.torch, cx.pt, INV
+    from pygenray_tpu_torch.adjoint import _COEF_VJP_CHUNK_ELEMS, travel_times_of_coef
+
+    z = np.linspace(0.0, 6000.0, P["nz"])
+    r = np.linspace(0.0, P["r_max"], P["nr"])
+    dc_true = (3.0 * np.exp(-(((z - 900.0) / 700.0) ** 2))[None, :]
+               * np.exp(-(((r - 0.4 * P["r_max"]) / (0.18 * P["r_max"])) ** 2))[:, None])
+
+    def build(dc_rz):
+        c = np.outer(np.ones(len(r)), pt.munk_ssp(z)) + dc_rz
+        return pt.make_env_data(c, r, z, np.full(len(r), 5500.0), r, dtype=torch.float32,
+                                device=cx.dev, cheb_order=P["K"] - 1, cheb_exact_order=True,
+                                force_range_dependent=True, dcdz="consistent")
+
+    env_true, env0 = build(dc_true), build(0.0 * dc_true)
+    require(env0.range_dependent and env0.c_cheb.shape == (P["nr"], P["K"]),
+            "the inversion's field is not a 9 x 32 range-dependent fit")
+    s = pt.SolverSettings(dx=P["dx"], interp="cheb", kahan=False)
+    c_src = np.interp(SRC_DEPTH, z, env0.c[0].cpu().numpy())
+    p0 = (np.sin(np.radians(-np.linspace(-11.0, 11.0, P["B"]))) / c_src).astype(np.float32)
+    T_obs = travel_times_of_coef(env_true, SRC_DEPTH, p0, 0.0, P["r_max"], s)(env_true.c_cheb)
+    f = travel_times_of_coef(env0, SRC_DEPTH, p0, 0.0, P["r_max"], s)
+    cc0 = env0.c_cheb
+
+    def value_and_grad(cc):
+        c = cc.detach().requires_grad_(True)
+        d = f(c) - T_obs
+        val = 0.5 * (d * d).sum() + P["lam"] * ((c - cc0) ** 2).sum()
+        (g,) = torch.autograd.grad(val, c)
+        return val.detach(), g
+
+    chunks = -(-P["K"] // max(1, min(P["K"], _COEF_VJP_CHUNK_ELEMS // (P["nr"] * P["B"]))))
+    _, _, n = counted(cx, lambda: value_and_grad(cc0))
+    require_counts("inversion step", n, LAUNCHES=1, COEF_TANGENT_RD_LAUNCHES=chunks)
+    cc, m, v = cc0.clone(), torch.zeros_like(cc0), torch.zeros_like(cc0)
+    b1, b2, eps = 0.9, 0.999, 1e-12
+    hist = []
+
+    def adam():
+        nonlocal cc, m, v
+        for it in range(P["iters"]):
+            val, g = value_and_grad(cc)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mh = m / (1 - b1 ** (it + 1))
+            vh = v / (1 - b2 ** (it + 1))
+            cc = cc - P["lr"] * mh / (torch.sqrt(vh) + eps)
+            hist.append(val)
+
+    _, wall, n = counted(cx, adam)
+    hist = [float(x) for x in hist]
+    # B6 alone at the inversion's backward shape (9 stations x 32 directions
+    # x 128 rays x 300 steps), on the starting field
+    h, sps, nseg = cx.plan(0.0, P["r_max"], 2, P["dx"])
+    g_inv = (0.0, P["r_max"], h, sps, nseg)
+    d_inv, dp_inv = unit_directions(cx, env0)
+    p0_inv = on_card(cx, p0)
+    b6_inv = cx.stepper.trace_coef_tangent_rd_kernel(env0, SRC_DEPTH, p0_inv, d_inv, dp_inv,
+                                                     g_inv, s)
+    b6_inv_ms = events_ms(lambda: cx.stepper.trace_coef_tangent_rd_kernel(
+        env0, SRC_DEPTH, p0_inv, d_inv, dp_inv, g_inv, s), n=10)
+    b6_inv_bound, b6_inv_by = coef_bound(b6_inv, env0, sps * nseg)
+    require_counts("inversion", n, LAUNCHES=P["iters"], COEF_TANGENT_RD_LAUNCHES=chunks * P["iters"])
+    drop = hist[0] / max(hist[-1], 1e-300)
+    # the demo's held-out skill: travel-time anomalies of an offset fan
+    p0_val = (np.sin(np.radians(-np.linspace(-10.3, 10.3, P["B"] + 7))) / c_src).astype(np.float32)
+    f_val = travel_times_of_coef(env0, SRC_DEPTH, p0_val, 0.0, P["r_max"], s)
+    f_val_true = travel_times_of_coef(env_true, SRC_DEPTH, p0_val, 0.0, P["r_max"], s)
+    with torch.no_grad():
+        base = f_val(cc0)
+        dT_pred = (f_val(cc) - base).double().cpu().numpy()
+        dT_true = (f_val_true(env_true.c_cheb) - base).double().cpu().numpy()
+    cor = float(np.corrcoef(dT_pred, dT_true)[0, 1])
+    rms_res = float(np.sqrt(np.mean((dT_pred - dT_true) ** 2)))
+    rms_sig = float(np.sqrt(np.mean(dT_true ** 2)))
+    out = {"iterations": P["iters"], "misfit_first": hist[0], "misfit_last": hist[-1],
+           "drop": drop, "required_drop": 1.0 / P["drop"], "heldout_corr": cor,
+           "heldout_residual_rms_ms": rms_res * 1e3, "heldout_signal_rms_ms": rms_sig * 1e3,
+           "launches": {k: v for k, v in n.items() if v}, "wall_s": wall,
+           "ms_per_step": wall / P["iters"] * 1e3, "b6_launches_per_step": chunks,
+           "b6_event_ms": b6_inv_ms, "b6_bound_ms": b6_inv_bound, "b6_bound_by": b6_inv_by}
+    emit("gradient_inversion", card=cx.smi, **out)
+    require(all(np.isfinite(hist)), "non-finite misfit")
+    require(hist[-1] < hist[0] * P["drop"], f"the misfit dropped {drop:.3g}x, not 20x")
+    return out
+
+
+def adjoint_vs_jax_phase(cx):
+    """The adjoint operators on the card against the JAX package's answers
+    (``adjoint_jax_f32.npz``, ``tests/fixtures/make_adjoint_fixture.py``):
+    the coefficient-tangent kernels (B5, B6) and the ``torch.func.jacfwd``
+    fallback against its Pallas kernels and jacfwd, the vjp through the
+    kernels, the Fermat operators (spectral and segment), the perturbation
+    response and the endpoint gradients; errors stated, bounds
+    ``ADJ_*``."""
+    import dataclasses as dc
+    import importlib.util
+
+    torch, pt = cx.torch, cx.pt
+    import pygenray_tpu_torch.adjoint as adj
+
+    spec = importlib.util.spec_from_file_location("make_adjoint_fixture",
+                                                  FIXTURES / "make_adjoint_fixture.py")
+    F = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(F)
+    fx = np.load(ADJOINT_JAX)
+    P = json.loads(str(fx["params"]))
+    require(P == F.PARAMS, "the fixture was written with other parameters")
+    p0, x1, zs = on_card(cx, F.launch_p0(P)), P["r_max"], P["source_depth"]
+    s = pt.SolverSettings(dx=P["dx"])
+    errs = {}
+
+    def rel(name, got, want, bound_rel):
+        got = got.detach().double().cpu().numpy() if isinstance(got, torch.Tensor) else got
+        scale = float(np.abs(want).max())
+        e = float(np.abs(np.asarray(got) - want).max())
+        errs[name] = {"max_abs_err": e, "largest": scale, "bound": bound_rel * scale}
+        require(np.shape(got) == want.shape, f"{name}: shape {np.shape(got)} vs {want.shape}")
+        require(e <= bound_rel * scale, f"{name}: off the JAX package by {e:.3g} ({scale:.3g})")
+
+    def absol(name, got, want, bound_abs):
+        got = got.detach().double().cpu().numpy() if isinstance(got, torch.Tensor) else got
+        e = float(np.abs(np.asarray(got) - want).max())
+        errs[name] = {"max_abs_err": e, "bound": bound_abs}
+        require(e <= bound_abs, f"{name}: off the JAX package by {e:.3g}")
+
+    for kind in ("ri", "rd"):
+        env = pt.make_env_data(*F.tables(P, pt.munk_ssp, kind == "rd"), dtype=torch.float32,
+                               device=cx.dev)
+        jac = adj.travel_time_jacobian_2d if kind == "rd" else adj.travel_time_jacobian
+        name = "COEF_TANGENT_RD_LAUNCHES" if kind == "rd" else "COEF_TANGENT_LAUNCHES"
+        (T, J), _, n = counted(cx, lambda: jac(env, zs, p0, 0.0, x1, s))
+        require(n[name] == 1, f"{kind}: the Jacobian did not launch its kernel")
+        (Tf, Jf), fwd_s, _ = counted(cx, lambda: jac(env, zs, p0, 0.0, x1, s, mode="fwd"))
+        errs[f"{kind}_fwd_seconds"] = fwd_s
+        for ref in ("kernel", "fwd"):
+            absol(f"{kind}_kernel_T_vs_{ref}", T, fx[f"{kind}/{ref}/T"], ADJ_T_S)
+            rel(f"{kind}_kernel_J_vs_{ref}", J, fx[f"{kind}/{ref}/J"], ADJ_J_REL[kind])
+            rel(f"{kind}_torch_func_fwd_J_vs_{ref}", Jf, fx[f"{kind}/{ref}/J"], ADJ_J_REL[kind])
+        absol(f"{kind}_torch_func_fwd_T", Tf, fx[f"{kind}/fwd/T"], ADJ_T_S)
+        (Tv, g), _, n = counted(cx, lambda: adj.travel_time_coef_vjp(
+            env, zs, p0, 0.0, x1, np.asarray(P["v"], np.float32), s))
+        require(n[name] >= 1 and n["LAUNCHES"] == 1, f"{kind}: the vjp launched {n}")
+        absol(f"vjp_{kind}_T", Tv, fx[f"vjp_{kind}/T"], ADJ_T_S)
+        rel(f"vjp_{kind}_g", g, fx[f"vjp_{kind}/g"], ADJ_J_REL["vjp"])
+        # the Fermat and endpoint traces on the Clenshaw series, as the
+        # fixture's (ROADMAP C: the Horner series round apart in float32)
+        env_c = dc.replace(env, poly_ok=False)
+        Tq, G = adj.fermat_jacobian(env_c, zs, p0, 0.0, x1, s, num_save=P["fermat_saves"])
+        absol(f"fermat_{kind}_T", Tq, fx[f"fermat_{kind}/T"], ADJ_T_S)
+        rel(f"fermat_{kind}_G", G, fx[f"fermat_{kind}/G"], ADJ_J_REL["fermat"])
+        if kind == "ri":
+            dT = adj.perturbation_response(G, env_c, F.perturbation(P, env.z.cpu().numpy()))
+            rel("perturbation_response", dT, fx["pert/dT"], ADJ_J_REL["fermat"])
+        else:
+            Te, d_src, d_rcv = adj.endpoint_time_gradients(env_c, zs, p0, 0.0, x1, s)
+            absol("endpoint_T", Te, fx["endpoint/T"], ADJ_T_S)
+            absol("endpoint_dT_dz_src", d_src, fx["endpoint/dT_dz_src"], ADJ_GRAD)
+            absol("endpoint_dT_dz_rcv", d_rcv, fx["endpoint/dT_dz_rcv"], ADJ_GRAD)
+    S = P["seg"]
+    env_s = pt.make_env_data(*F.rough_tables(P, pt.munk_ssp), interp="seg", dtype=torch.float32,
+                             device=cx.dev)
+    require(env_s.has_seg and not env_s.has_cheb, "the rough field did not take the segment fit")
+    p0s = on_card(cx, np.sin(np.radians(-np.asarray(S["fan"]))) / P["c_src"])
+    Tq, G = adj.fermat_jacobian(env_s, zs, p0s, 0.0, x1, pt.SolverSettings(dx=S["dx"], interp="seg"),
+                                num_save=P["fermat_saves"])
+    absol("fermat_seg_T", Tq, fx["fermat_seg/T"], ADJ_T_S)
+    rel("fermat_seg_G", G, fx["fermat_seg/G"], ADJ_J_REL["fermat_seg"])
+    emit("adjoint_vs_jax", **errs)
+    return errs
+
+
 def build_context(torch, pt, dev):
     """The environments, fans and settings the kernel comparisons share."""
     from pygenray_tpu_torch.integrate import _plan
@@ -1455,6 +1913,13 @@ def main() -> int:
     mc_vs_jax_phase(cx)
     emit("times_mc", card=smi, segment_rough=seg_row, **ens_rows)
 
+    # ---- phases 22-26: the adjoint operators ---------------------------------
+    adjoint_context(cx)
+    coef_err, coef_times, b5_bench = coef_tangent_phase(cx)
+    adj_paths = adjoint_paths_phase(cx, b5_bench)
+    inv = inversion_phase(cx)
+    adjoint_vs_jax_phase(cx)
+
     err = worst(errs_all)
     launches_tan = eig["timefront"][1][1]
     print(smi, flush=True)
@@ -1560,6 +2025,49 @@ def main() -> int:
         "ms_fan": ens_rows["config4b_fan"]["kernel_event_ms"],
         "bound_ms_fan": ens_rows["config4b_fan"]["bound_ms"],
         "bound_by_fan": ens_rows["config4b_fan"]["bound_by"],
+    }, {
+        # bench.py's spectral Jacobian: 512 rays x 16 directions x 500 steps;
+        # the plain version once over that fan and the ±30° one
+        "name": "trace_coef_tangent_f32",
+        "route": "cuda",
+        "source": "pygenray_tpu_torch/csrc/trace_coef_tangent.cu",
+        "replaces": "pygenray_tpu/ops/pallas_stepper.py:1366",
+        "launches": adj_paths["jacobian"]["launches"]["COEF_TANGENT_LAUNCHES"],
+        "max_abs_err": coef_err["b5"]["dT"],  # the Jacobian [s per unit coefficient]; T below
+        "max_abs_err_T": coef_err["b5"]["T"],
+        "max_abs_err_dz": coef_err["b5"]["dz"],
+        "ms": coef_times["b5"]["kernel_event_ms"],
+        "plain_ms": coef_times["b5"]["plain_ms_both_fans"],
+        "bound_ms": coef_times["b5"]["bound_ms"],
+        "bound_by": coef_times["b5"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a ray tangent
+        "shape": f"{JAC_RAYS} rays x 16 directions x {coef_times['b5']['steps']} steps",
+        "plain_shape": f"{2 * JAC_RAYS} rays x 16 directions",
+        "wall_ms_travel_time_jacobian": adj_paths["jacobian"]["median_ms"],
+    }, {
+        # bench.py's 2D Jacobian: 64 rays x 16 directions x 32 stations x
+        # 1,000 steps; launches: one per travel_time_jacobian_2d, and one per
+        # step of the inversion below
+        "name": "trace_coef_tangent_rd_f32",
+        "route": "cuda",
+        "source": "pygenray_tpu_torch/csrc/trace_coef_tangent_rd.cu",
+        "replaces": "pygenray_tpu/ops/pallas_stepper.py:1619",
+        "launches": adj_paths["jacobian_2d"]["launches"]["COEF_TANGENT_RD_LAUNCHES"],
+        "launches_inversion": inv["launches"]["COEF_TANGENT_RD_LAUNCHES"],
+        "max_abs_err": coef_err["b6"]["dT"],
+        "max_abs_err_T": coef_err["b6"]["T"],
+        "max_abs_err_dz": coef_err["b6"]["dz"],
+        "ms": coef_times["b6"]["kernel_event_ms"],
+        "plain_ms": coef_times["b6"]["plain_ms"],
+        "bound_ms": coef_times["b6"]["bound_ms"],
+        "bound_by": coef_times["b6"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a ray tangent
+        "shape": f"{JAC2['rays']} rays x 16 directions x {JAC2['nr']} stations x "
+                 f"{coef_times['b6']['steps']} steps",
+        "wall_ms_travel_time_jacobian_2d": adj_paths["jacobian_2d"]["median_ms"],
+        "inversion_ms_per_step": inv["ms_per_step"],
+        "ms_inversion": inv["b6_event_ms"],
+        "bound_ms_inversion": inv["b6_bound_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

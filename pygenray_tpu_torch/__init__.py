@@ -9,8 +9,10 @@ eigenray search's Newton iterations as a forward-tangent kernel
 transmission-loss fields) as a save-grid forward-tangent kernel
 (``csrc/trace_tangent_save.cu``), and the Monte-Carlo eigenray search over
 an ensemble of environments as an ensemble forward-tangent kernel
-(``csrc/trace_tangent_ens.cu``); on the CPU all four run as torch-op step
-loops.  The entry points build their tensors
+(``csrc/trace_tangent_ens.cu``), and the travel-time Jacobians and
+coefficient gradients of tomography (``adjoint.py``) as coefficient-tangent
+kernels (``csrc/trace_coef_tangent.cu``, ``csrc/trace_coef_tangent_rd.cu``);
+on the CPU all six run as torch-op step loops.  The entry points build their tensors
 on the CUDA device unless the caller passes ``device="cpu"``.  This package
 imports torch, numpy and scipy, never jax.
 
@@ -30,6 +32,13 @@ from .integrate import DEATH_CODES, SolverSettings, TraceResult, trace
 from .shoot import shoot_ray, shoot_rays, settings_for
 from .eigenrays import find_eigenrays, find_eigenrays_batch
 from .montecarlo import make_env_ensemble, mc_eigenray_times, trace_ensemble
+from .adjoint import (
+    endpoint_time_gradients,
+    fermat_jacobian,
+    perturbation_response,
+    travel_time_jacobian,
+    travel_time_jacobian_2d,
+)
 from .amplitudes import Arrivals, arrival_amplitudes
 from .response import (
     ArrayResponse,
@@ -85,6 +94,11 @@ __all__ = [
     "make_env_ensemble",
     "trace_ensemble",
     "mc_eigenray_times",
+    "travel_time_jacobian",
+    "travel_time_jacobian_2d",
+    "fermat_jacobian",
+    "endpoint_time_gradients",
+    "perturbation_response",
     "Arrivals",
     "arrival_amplitudes",
     "Response",

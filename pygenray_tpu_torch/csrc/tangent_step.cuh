@@ -1,8 +1,17 @@
 // The event-aware RK4 step on (value, tangent) pairs, shared by the
-// forward-tangent kernels: trace_tangent.cu (final state only) and
-// trace_tangent_save.cu (state and tangent at every save point).  One
+// forward-tangent kernels: trace_tangent.cu (final state only),
+// trace_tangent_save.cu (state and tangent at every save point),
+// trace_tangent_ens.cu (over an ensemble) and the coefficient-tangent
+// kernels trace_coef_tangent.cu and trace_coef_tangent_rd.cu.  One
 // definition, so the kernels cannot drift apart: the save-grid kernel's last
-// row is the final-state kernel's output bit for bit.
+// row is the final-state kernel's output bit for bit, and the
+// coefficient-tangent kernels' primal is the final-state kernel's on the
+// same Clenshaw rows.
+//
+// The step reads the profile's two series through a row type: `Rows`
+// (constant coefficients; the launch-parameter tangents) or `CoefRows`
+// (coefficients that carry a tangent along a direction of the Chebyshev
+// coefficients, weighted by a station's hat; Clenshaw only).
 //
 // Replaces `_make_step_math` of the Pallas TPU tangent kernels
 // (pygenray_tpu/ops/pallas_stepper.py:730-823).  The step is written over the
@@ -41,21 +50,59 @@ __device__ __forceinline__ Dual dpoly(const float* c, int K, Dual u) {
   return POW ? dhorner(c, K, u) : dclenshaw(c, K, u);
 }
 
+// the (c, dc/dz) series of a profile with constant coefficients
+struct Rows {
+  const float* c;
+  const float* cp;
+};
+
+// the (c, dc/dz) series with coefficients {c[k], hat * dc[k]}: perturbed
+// along the direction (dc, dcp), with the station's weight hat in the
+// blended row (1 for a range-independent fit)
+struct CoefRows {
+  const float* c;
+  const float* cp;
+  const float* dc;
+  const float* dcp;
+  float hat;
+};
+
+template <bool POW>
+__device__ __forceinline__ Dual series_c(const Rows& r, int K, Dual u) {
+  return dpoly<POW>(r.c, K, u);
+}
+
+template <bool POW>
+__device__ __forceinline__ Dual series_cp(const Rows& r, int K, Dual u) {
+  return dpoly<POW>(r.cp, K, u);
+}
+
+template <bool POW>
+__device__ __forceinline__ Dual series_c(const CoefRows& r, int K, Dual u) {
+  static_assert(!POW, "coefficient tangents are evaluated by Clenshaw only");
+  return dclenshaw(r.c, r.dc, r.hat, K, u);
+}
+
+template <bool POW>
+__device__ __forceinline__ Dual series_cp(const CoefRows& r, int K, Dual u) {
+  static_assert(!POW, "coefficient tangents are evaluated by Clenshaw only");
+  return dclenshaw(r.cp, r.dcp, r.hat, K, u);
+}
+
 struct DDeriv {
   Dual kT, kz, kp, c;
 };
 
-template <bool POW>
-__device__ __forceinline__ Dual ev_c(const float* cc, const Params& P, Dual z) {
-  return dpoly<POW>(cc, P.K, dclip(P.sc * z - P.off, -1.0f, 1.0f));
+template <bool POW, class R>
+__device__ __forceinline__ Dual ev_c(const R& r, const Params& P, Dual z) {
+  return series_c<POW>(r, P.K, dclip(P.sc * z - P.off, -1.0f, 1.0f));
 }
 
-template <bool POW>
-__device__ __forceinline__ DDeriv rhs(const float* cc, const float* cpc, const Params& P, Dual z,
-                                      Dual p) {
+template <bool POW, class R>
+__device__ __forceinline__ DDeriv rhs(const R& r, const Params& P, Dual z, Dual p) {
   const Dual u = dclip(P.sc * z - P.off, -1.0f, 1.0f);
-  const Dual c = dpoly<POW>(cc, P.K, u);
-  const Dual cp = dpoly<POW>(cpc, P.K, u);
+  const Dual c = series_c<POW>(r, P.K, u);
+  const Dual cp = series_cp<POW>(r, P.K, u);
   const Dual cp2 = c * p;
   const Dual inv_s = drsqrt(dmax(1.0f - cp2 * cp2, TS_TINY));
   const Dual invc = 1.0f / c;
@@ -146,16 +193,16 @@ struct RayState {
   int death, n_surf, n_bott;
 };
 
-// the launch state: tangents seed p0 and the source depth z0
-template <bool POW>
-__device__ __forceinline__ RayState initial_state(const float* s_c, const float* s_cp,
-                                                  const Params& P, float z0, float dz0, float p0,
-                                                  float dp0) {
+// the launch state: tangents seed p0 and the source depth z0; r0: the
+// series at the launch range
+template <bool POW, class R>
+__device__ __forceinline__ RayState initial_state(const R& r0, const Params& P, float z0,
+                                                  float dz0, float p0, float dp0) {
   RayState s;
   s.T = {0.0f, 0.0f};
   s.z = {z0, dz0};
   s.p = {p0, dp0};
-  s.k1 = rhs<POW>(s_c, s_cp, P, s.z, s.p);
+  s.k1 = rhs<POW>(r0, P, s.z, s.p);
   s.alive = (z0 >= P.zlo_m) && (z0 <= P.zhi_p);
   s.death = s.alive ? 0 : 2;
   s.n_surf = 0;
@@ -163,27 +210,30 @@ __device__ __forceinline__ RayState initial_state(const float* s_c, const float*
   return s;
 }
 
+// the launch state over constant-coefficient rows
+template <bool POW>
+__device__ __forceinline__ RayState initial_state(const float* s_c, const float* s_cp,
+                                                  const Params& P, float z0, float dz0, float p0,
+                                                  float dp0) {
+  return initial_state<POW>(Rows{s_c, s_cp}, P, z0, dz0, p0, dp0);
+}
+
 // step k of a live ray: RK4 with the end derivative carried over, the
-// boundary-crossing fix, uncompensated accumulation, death checks.
-// s_c/s_cp: the range-independent rows in shared memory; s_ba: the
-// bottom-angle series in shared memory.
-template <bool POW, bool RD>
-__device__ __forceinline__ void step(const Params& P, const StepInputs& in, const float* s_c,
-                                     const float* s_cp, const float* s_ba, int k, RayState& s) {
+// boundary-crossing fix, uncompensated accumulation, death checks.  rm, r1:
+// the series at mid-step and at the step's end; s_ba: the bottom-angle
+// series in shared memory.
+template <bool POW, class R>
+__device__ __forceinline__ void step_rows(const Params& P, const StepInputs& in, const R& rm,
+                                          const R& r1, const float* s_ba, int k, RayState& s) {
   const float hs = P.h;
   const float h6 = hs / 6.0f;
   const Dual T = s.T, z = s.z, p = s.p;
   const DDeriv k1 = s.k1;
-  const size_t row = RD ? (size_t)k * P.K : 0;
-  const float* cm = RD ? in.cms + row : s_c;  // mid-step rows
-  const float* cpm = RD ? in.cpms + row : s_cp;
-  const float* c1 = RD ? in.c1s + row : s_c;  // end-of-step rows
-  const float* cp1 = RD ? in.cp1s + row : s_cp;
 
   // ---- RK4 (k1 carried from the previous step's end derivative) ----
-  const DDeriv k2 = rhs<POW>(cm, cpm, P, z + 0.5f * hs * k1.kz, p + 0.5f * hs * k1.kp);
-  const DDeriv k3 = rhs<POW>(cm, cpm, P, z + 0.5f * hs * k2.kz, p + 0.5f * hs * k2.kp);
-  const DDeriv k4 = rhs<POW>(c1, cp1, P, z + hs * k3.kz, p + hs * k3.kp);
+  const DDeriv k2 = rhs<POW>(rm, P, z + 0.5f * hs * k1.kz, p + 0.5f * hs * k1.kp);
+  const DDeriv k3 = rhs<POW>(rm, P, z + 0.5f * hs * k2.kz, p + 0.5f * hs * k2.kp);
+  const DDeriv k4 = rhs<POW>(r1, P, z + hs * k3.kz, p + hs * k3.kp);
   const Dual dT = h6 * (k1.kT + 2.0f * k2.kT + 2.0f * k3.kT + k4.kT);
   const Dual dz = h6 * (k1.kz + 2.0f * k2.kz + 2.0f * k3.kz + k4.kz);
   const Dual dp = h6 * (k1.kp + 2.0f * k2.kp + 2.0f * k3.kp + k4.kp);
@@ -218,7 +268,7 @@ __device__ __forceinline__ void step(const Params& P, const StepInputs& in, cons
     const Dual z_c = hermite(f, z, z1, mz0, mz1);
     const Dual p_c = hermite(f, p, p1, hs * k1.kp, hs * k4.kp);
     // reflect (sin θ' = sin 2β cos θ - cos 2β sin θ, sin θ = c p)
-    const Dual c_c = ev_c<POW>(cm, P, z_c);
+    const Dual c_c = ev_c<POW>(rm, P, z_c);
     const Dual sin_th = dclip(p_c * c_c, -1.0f, 1.0f);
     const Dual cos_th = dsqrt(dmax(1.0f - sin_th * sin_th, 0.0f));
     Dual p_ref;
@@ -237,12 +287,12 @@ __device__ __forceinline__ void step(const Params& P, const StepInputs& in, cons
     back_dead = P.term_back && bott && (back_cos < -1e-9f);
     // re-integrate the remainder of the step from the crossing (Heun)
     const Dual hr = (1.0f - f) * hs;
-    const DDeriv r1 = rhs<POW>(cm, cpm, P, z_c, p_ref);
-    const DDeriv r2 = rhs<POW>(c1, cp1, P, z_c + hr * r1.kz, p_ref + hr * r1.kp);
+    const DDeriv q1 = rhs<POW>(rm, P, z_c, p_ref);
+    const DDeriv q2 = rhs<POW>(r1, P, z_c + hr * q1.kz, p_ref + hr * q1.kp);
     if (!back_dead) {
-      dT_tot = t_off + hr * 0.5f * (r1.kT + r2.kT);
-      dz_tot = (z_c + hr * 0.5f * (r1.kz + r2.kz)) - z;
-      p_new = p_ref + hr * 0.5f * (r1.kp + r2.kp);
+      dT_tot = t_off + hr * 0.5f * (q1.kT + q2.kT);
+      dz_tot = (z_c + hr * 0.5f * (q1.kz + q2.kz)) - z;
+      p_new = p_ref + hr * 0.5f * (q1.kp + q2.kp);
     }
     s.n_surf += surf;
     s.n_bott += bott;
@@ -254,11 +304,22 @@ __device__ __forceinline__ void step(const Params& P, const StepInputs& in, cons
   s.p = p_new;
 
   // ---- end-of-step derivative (next step's k1) + death checks ----
-  s.k1 = rhs<POW>(c1, cp1, P, s.z, s.p);
+  s.k1 = rhs<POW>(r1, P, s.z, s.p);
   const bool vert = fabsf(s.k1.c.v * s.p.v) > P.sin_lim;
   const bool oob = (s.z.v > P.zhi_p) || (s.z.v < P.zlo_m) || (P.any_x_oob && in.xoob[k]);
   s.death = back_dead ? 3 : (vert ? 1 : (oob ? 2 : s.death));
   s.alive = !(vert || oob || back_dead);
+}
+
+// step k over constant-coefficient rows: s_c/s_cp, the range-independent
+// rows in shared memory, or (RD) row k of the per-step tables
+template <bool POW, bool RD>
+__device__ __forceinline__ void step(const Params& P, const StepInputs& in, const float* s_c,
+                                     const float* s_cp, const float* s_ba, int k, RayState& s) {
+  const size_t row = RD ? (size_t)k * P.K : 0;
+  const Rows rm = RD ? Rows{in.cms + row, in.cpms + row} : Rows{s_c, s_cp};  // mid-step
+  const Rows r1 = RD ? Rows{in.c1s + row, in.cp1s + row} : Rows{s_c, s_cp};  // step's end
+  step_rows<POW>(P, in, rm, r1, s_ba, k, s);
 }
 
 }  // namespace tangent_step

@@ -218,6 +218,21 @@ def _station_iw(env: EnvData, x):
     return i, (x - env.r[i]) / (env.r[i + 1] - env.r[i])
 
 
+def _station_iw_rows(env: EnvData, geom):
+    """``(st_i, st_w)``: the station interval index (int32) and weight of
+    ``_station_iw`` at the launch range, then at step k's middle (entry
+    2k + 1) and end (2k + 2), each (2 nsteps + 1,).  The kernels that blend
+    stations themselves read these rows: the segment-mode fan kernel (at
+    each coefficient pick) and the range-dependent coefficient-tangent
+    kernel (its hat weights)."""
+    _, xsm, xs1 = _step_ranges(env, geom)
+    i0, w0 = _station_iw(env, torch.tensor(geom[0], dtype=env.dtype, device=env.device))
+    im, wm = _station_iw(env, xsm)
+    i1, w1 = _station_iw(env, xs1)
+    flat = lambda a0, am, a1: torch.cat([a0.reshape(1), torch.stack([am, a1], 1).reshape(-1)])
+    return flat(i0, im, i1).to(torch.int32).contiguous(), flat(w0, wm, w1).contiguous()
+
+
 def _blend_rows(env: EnvData, ctab, cptab, x):
     """Station tables blended linearly in range at ranges ``x`` (any shape):
     returns a pair of tables with ``x``'s shape prepended."""
@@ -763,6 +778,106 @@ def _trace_tangent_ens_impl(env_ens: EnvData, z0, p0, dp0, geom, settings: Solve
     z0 = torch.as_tensor(z0, dtype=env_ens.dtype, device=env_ens.device).expand(p0.shape)
     T, z, p, n_surf, n_bott, death, _ = _tangent_loop(st, z0, p0, dp0, None, save=False)
     return T.v, z.v, p.v, T.t, z.t, p.t, n_surf, n_bott, death
+
+
+class _CoefStepper(_Stepper):
+    """A ``_Stepper`` whose profile tables are ``Dual``\\ s: the primal
+    rows with, as their tangent, a coefficient direction ``(dcoef,
+    dcpcoef)`` (D, K) of the (c, dc/dz) Chebyshev series.  Range-independent:
+    the ray state is (D, B) and every step's tables carry the tangent (D, 1,
+    K).  Range-dependent: the state is (nr, D, B), and station j's tangent
+    row at range x is ``hat_j(x) * dcoef`` with the linear hat weight
+    ``hat_j = (1 - w)[i == j] + w[i + 1 == j]`` of the station interval (i,
+    w) there (``_station_iw_rows``), a (nr, D, 1, K) table.  Clenshaw only
+    (the caller's environment has ``poly_ok`` off)."""
+
+    def __init__(self, env: EnvData, geom, settings: SolverSettings, dcoef, dcpcoef):
+        super().__init__(env, geom, settings)
+        self.rd = bool(env.range_dependent)
+        if not self.rd:
+            dt = (dcoef[:, None, :], dcpcoef[:, None, :])
+            self.prof0 = self._dual(self.sd.prof0, dt)
+            return
+        st_i, st_w = _station_iw_rows(env, geom)
+        j = torch.arange(env.c_cheb.shape[0], dtype=torch.int32, device=env.device)
+        i, w = st_i[:, None], st_w[:, None]
+        # (2 nsteps + 1, nr): d(blended row)/d(station j)
+        self.hats = torch.where(i == j, 1.0 - w, torch.where(i == j - 1, w, 0.0))
+        self.dir = (dcoef[None, :, None, :], dcpcoef[None, :, None, :])
+        self.prof0 = self._dual(self.sd.prof0, self._hat_rows(0))
+
+    @staticmethod
+    def _dual(prof, tang):
+        return D.Dual(prof[0], tang[0]), D.Dual(prof[1], tang[1])
+
+    def _hat_rows(self, n):
+        """The tangent tables at entry ``n`` of the station rows."""
+        h = self.hats[n][:, None, None, None]
+        return h * self.dir[0], h * self.dir[1]
+
+    def rows(self, k):
+        if not self.rd:
+            return self.prof0, self.prof0
+        prof_m, prof_1 = super().rows(k)
+        return (self._dual(prof_m, self._hat_rows(2 * k + 1)),
+                self._dual(prof_1, self._hat_rows(2 * k + 2)))
+
+
+def _coef_tangent_loop(env: EnvData, z0, p0, dcoef, dcpcoef, geom, settings: SolverSettings):
+    """What both coefficient-tangent traces share: ``_tangent_loop`` over
+    a (D, B) or (nr, D, B) ray state through a ``_CoefStepper`` on the
+    Clenshaw environment, launch tangents 0, no Kahan; the primal fields
+    and counters are read off the first direction (every direction carries
+    the same primal)."""
+    env = dataclasses.replace(env, poly_ok=False)
+    _check_tangent(env, settings)
+    dcoef, dcpcoef = (torch.as_tensor(d, dtype=env.dtype, device=env.device)
+                      for d in (dcoef, dcpcoef))
+    st = _CoefStepper(env, geom, settings, dcoef, dcpcoef)
+    lead = (env.c_cheb.shape[0],) if env.range_dependent else ()
+    z0, p0 = (t.expand(*lead, dcoef.shape[0], -1) for t in _as_batch(env, z0, p0))
+    T, z, p, n_surf, n_bott, death, _ = _tangent_loop(st, z0, p0, 0.0, None, save=False)
+    first = lambda a: a.reshape(-1, a.shape[-1])[0]
+    return (first(T.v), first(z.v), first(p.v), T.t, z.t, p.t, first(n_surf), first(n_bott),
+            first(death))
+
+
+def _trace_coef_tangent_impl(env: EnvData, z0, p0, dcoef, dcpcoef, geom,
+                             settings: SolverSettings):
+    """Final-state trace with one forward tangent per coefficient direction
+    of a range-independent spectral fit: direction d perturbs the Chebyshev
+    coefficients as ``c + a * dcoef[d]`` and ``dc/dz + a * dcpcoef[d]``
+    together and differentiates at a = 0.  Returns ``(T, z, p, dT, dz, dp,
+    n_surf, n_bott, death)``: the primal fields and counters (B,), the
+    tangents (D, B), in the ODE convention, as the JAX package's
+    ``trace_pallas_coef_tangent`` does.
+
+    The plain version of the coefficient-tangent kernel (``ops/stepper.py``,
+    ``csrc/trace_coef_tangent.cu``).  The series are evaluated by Clenshaw
+    whatever ``env.poly_ok`` says (a unit direction re-expressed in
+    monomials has 2^k-scale entries, which a float32 Horner tangent cannot
+    carry), so the primal is ``_trace_tangent_impl`` on the
+    ``poly_ok=False`` environment, bit for bit.  Float32 or float64."""
+    if env.range_dependent:
+        raise ValueError("the coefficient-tangent trace requires a range-independent fit; "
+                         "use _trace_coef_tangent_rd_impl")
+    return _coef_tangent_loop(env, z0, p0, dcoef, dcpcoef, geom, settings)
+
+
+def _trace_coef_tangent_rd_impl(env: EnvData, z0, p0, dcoef, dcpcoef, geom,
+                                settings: SolverSettings):
+    """``_trace_coef_tangent_impl`` for a range-dependent spectral fit:
+    every direction g of ``(dcoef, dcpcoef)`` (Dk, K) applied at each
+    station j in turn (station j's coefficients perturbed, the blend
+    carrying the perturbation with its hat weight).  Returns the primal
+    fields and counters (B,) and the tangents (nr, Dk, B), as the JAX
+    package's ``trace_pallas_coef_tangent_rd`` does.  The plain version of
+    ``csrc/trace_coef_tangent_rd.cu``; its primal is ``_trace_tangent_impl``
+    on the ``poly_ok=False`` environment, bit for bit."""
+    if not env.range_dependent:
+        raise ValueError("the range-dependent coefficient-tangent trace requires a "
+                         "range-dependent fit; use _trace_coef_tangent_impl")
+    return _coef_tangent_loop(env, z0, p0, dcoef, dcpcoef, geom, settings)
 
 
 # ---------------------------------------------------------------------------

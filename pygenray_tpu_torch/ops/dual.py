@@ -165,12 +165,20 @@ def horner(u, coef):
 
 def clenshaw(u, coef):
     """``ops.cheb.clenshaw``; on a ``Dual`` the tangent follows the same
-    recurrence."""
+    recurrence.  ``coef`` may be a ``Dual`` table too (a ``Dual`` ``u``
+    then): the coefficient-tangent traces perturb the series along a
+    coefficient direction, whose term k enters each step as a ``Dual``
+    (``csrc/dual.cuh``'s ``dclenshaw`` over a direction)."""
     if not isinstance(u, Dual):
         return _clenshaw(u, coef)
-    K = coef.shape[-1]
+    if isinstance(coef, Dual):
+        K = coef.v.shape[-1]
+        term = lambda k: Dual(coef.v[..., k], coef.t[..., k])
+    else:
+        K = coef.shape[-1]
+        term = lambda k: coef[..., k]
     b1 = zeros_like(u)
     b2 = zeros_like(u)
     for k in range(K - 1, 0, -1):
-        b1, b2 = coef[..., k] + 2.0 * u * b1 - b2, b1
-    return coef[..., 0] + u * b1 - b2
+        b1, b2 = term(k) + 2.0 * u * b1 - b2, b1
+    return term(0) + u * b1 - b2

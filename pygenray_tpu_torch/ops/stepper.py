@@ -1,6 +1,6 @@
 """The CUDA trace kernels: wrappers, support tests and plain versions.
 
-Counterparts of four Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``:
+Counterparts of the six Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``:
 
 * ``trace_kernel`` — the forward mega-kernel (``trace_pallas``, :2733), in
   CUDA C++ ``csrc/trace_fan.cu``: one thread per ray integrates every step
@@ -23,6 +23,13 @@ Counterparts of four Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py``:
   ``csrc/trace_tangent_ens.cu``: the final-state tangent kernel over E
   realizations of a range-dependent field at once; the Newton engine of
   the Monte-Carlo eigenray search.
+* ``trace_coef_tangent_kernel`` and ``trace_coef_tangent_rd_kernel`` — the
+  coefficient-tangent kernels (``trace_pallas_coef_tangent``, :1518, and
+  ``trace_pallas_coef_tangent_rd``, :1820), in ``csrc/trace_coef_tangent.cu``
+  and ``csrc/trace_coef_tangent_rd.cu``: the same step with the tangent
+  taken along directions of the Chebyshev coefficients (per station, for a
+  range-dependent fit) instead of the launch parameters; the engine of the
+  travel-time Jacobians and coefficient gradients of ``adjoint.py``.
 
 The tangent kernels cover spectral profiles only (Horner or Clenshaw;
 range-independent, or range-dependent through per-step blended
@@ -32,11 +39,14 @@ wrapper launches its kernel or raises on what it cannot run; it never
 falls back.  On a CPU tensor it runs the kernel's plain version, the
 torch-op loop whose arithmetic the kernel reproduces expression for
 expression: ``integrate._trace_impl``, ``integrate._trace_tangent_impl``,
-``integrate._trace_tangent_save_impl`` and
-``integrate._trace_tangent_ens_impl``.  All read the per-step data of
+``integrate._trace_tangent_save_impl``,
+``integrate._trace_tangent_ens_impl``, ``integrate._trace_coef_tangent_impl``
+and ``integrate._trace_coef_tangent_rd_impl``.  All read the per-step data of
 ``integrate._step_data`` (and, in the fan kernel's range-dependent segment
-mode, the station indices and weights of ``integrate._station_iw``), so
-kernel and plain version see the same numbers.
+mode and the range-dependent coefficient-tangent kernel, the station
+indices and weights of ``integrate._station_iw_rows``), so kernel and plain
+version see the same numbers.  The coefficient-tangent kernels evaluate
+the series by Clenshaw only.
 """
 
 from __future__ import annotations
@@ -50,16 +60,18 @@ import torch
 
 from ..envdata import env_member
 from ..integrate import (
-    TraceResult, _as_batch, _ens_step_data, _save_ranges, _station_iw, _step_data, _step_ranges,
-    _trace_impl, _trace_tangent_ens_impl, _trace_tangent_impl, _trace_tangent_save_impl,
-    _use_cheb, _use_seg,
+    TraceResult, _as_batch, _ens_step_data, _save_ranges, _station_iw_rows, _step_data,
+    _trace_coef_tangent_impl, _trace_coef_tangent_rd_impl, _trace_impl,
+    _trace_tangent_ens_impl, _trace_tangent_impl, _trace_tangent_save_impl, _use_cheb, _use_seg,
 )
 from ..utils.cache import LRUCache, env_struct_key
 
 __all__ = [
     "kernel_supported", "tangent_supported", "trace_kernel", "trace_tangent_kernel",
-    "trace_tangent_save_kernel", "trace_tangent_ensemble_kernel", "LAUNCHES", "SEG_LAUNCHES",
-    "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES", "TANGENT_ENS_LAUNCHES",
+    "trace_tangent_save_kernel", "trace_tangent_ensemble_kernel", "trace_coef_tangent_kernel",
+    "trace_coef_tangent_rd_kernel", "LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES",
+    "TANGENT_SAVE_LAUNCHES", "TANGENT_ENS_LAUNCHES", "COEF_TANGENT_LAUNCHES",
+    "COEF_TANGENT_RD_LAUNCHES",
 ]
 
 # Numbers of kernel launches since import (or since a caller reset them):
@@ -69,6 +81,8 @@ SEG_LAUNCHES = 0  # trace_fan_f32 in its segment mode (counted in LAUNCHES too)
 TANGENT_LAUNCHES = 0  # trace_tangent_f32
 TANGENT_SAVE_LAUNCHES = 0  # trace_tangent_save_f32
 TANGENT_ENS_LAUNCHES = 0  # trace_tangent_ens_f32
+COEF_TANGENT_LAUNCHES = 0  # trace_coef_tangent_f32
+COEF_TANGENT_RD_LAUNCHES = 0  # trace_coef_tangent_rd_f32
 
 MAX_K = 256  # coefficient rows held in shared memory (csrc TF_MAX_K)
 MAX_KB = 128  # bottom-angle series length (csrc TF_MAX_KB)
@@ -238,19 +252,6 @@ class _Inputs:
                           *rows)]
 
 
-def _seg_station_iw(env, geom):
-    """The segment-mode kernel's station rows: ``(st_i, st_w)``, the
-    interval index and weight (``integrate._station_iw``) at the launch
-    range, then at step k's middle (entry 2k + 1) and end (2k + 2): the
-    numbers the plain version blends its tables with."""
-    _, xsm, xs1 = _step_ranges(env, geom)
-    i0, w0 = _station_iw(env, torch.tensor(geom[0], dtype=env.dtype, device=env.device))
-    im, wm = _station_iw(env, xsm)
-    i1, w1 = _station_iw(env, xs1)
-    flat = lambda a0, am, a1: torch.cat([a0.reshape(1), torch.stack([am, a1], 1).reshape(-1)])
-    return flat(i0, im, i1).to(torch.int32).contiguous(), flat(w0, wm, w1).contiguous()
-
-
 def _inputs(env, z0, p0, geom, settings) -> _Inputs:
     """Launch operands, computed by the plain version's own code
     (``integrate._step_data``) so the kernel reads its exact numbers."""
@@ -264,7 +265,7 @@ def _inputs(env, z0, p0, geom, settings) -> _Inputs:
     rows, st_i, st_w = (), None, None
     if seg and rd:
         ccoef, cpcoef = env.c_seg, env.dcdz_seg
-        st_i, st_w = _seg_station_iw(env, geom)
+        st_i, st_w = _station_iw_rows(env, geom)
     else:
         ccoef, cpcoef = sd.prof0
         if rd:
@@ -304,6 +305,16 @@ _ARGTYPES = {
         [_P] * 2 + [_F] + _IN  # p0 dp0 (E, M), z0, inputs
         + [_P] * 9  # T z p dT dz dp n_surf n_bott death (E, M)
         + [_I] * 8 + _TAIL  # E M K Kb nsteps use_pow bangle_cheb term_back
+    ),
+    "trace_coef_tangent_f32": (
+        [_P] * 2 + _IN + [_P] * 2  # p0 z0, inputs, dcoef dcpcoef (D, K)
+        + [_P] * 9  # T z p (B,), dT dz dp (D, B), n_surf n_bott death (B,)
+        + [_I] * 7 + _TAIL  # B K Kb nsteps D bangle_cheb term_back
+    ),
+    "trace_coef_tangent_rd_f32": (
+        [_P] * 2 + _IN + [_P] * 4  # p0 z0, inputs, st_i st_w, dcoef dcpcoef (Dk, K)
+        + [_P] * 9  # T z p (B,), dT dz dp (nr, Dk, B), n_surf n_bott death (B,)
+        + [_I] * 8 + _TAIL  # B K Kb nsteps Dk nr bangle_cheb term_back
     ),
 }
 _FNS = {}
@@ -537,3 +548,82 @@ def trace_tangent_ensemble_kernel(env_ens, z0, p0, dp0, geom, settings, sd=None)
                 inp, geom)
         TANGENT_ENS_LAUNCHES += 1
     return outs
+
+
+def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd):
+    """Both coefficient-tangent wrappers: the checks, the plain version on
+    a CPU environment, else one launch of ``trace_coef_tangent_f32`` or
+    (``rd``) ``trace_coef_tangent_rd_f32``, counted."""
+    global COEF_TANGENT_LAUNCHES, COEF_TANGENT_RD_LAUNCHES
+    if bool(env.range_dependent) != rd:
+        raise ValueError("trace_coef_tangent_rd_kernel takes range-dependent fits and "
+                         "trace_coef_tangent_kernel range-independent ones")
+    env = dataclasses.replace(env, poly_ok=False)
+    if not tangent_supported(env, settings):
+        raise ValueError("configuration not covered by the CUDA coefficient-tangent kernel")
+    dev = _check_device(env, "the coefficient-tangent kernel")
+    if dev.type == "cpu":
+        impl = _trace_coef_tangent_rd_impl if rd else _trace_coef_tangent_impl
+        return impl(env, z0, p0, dcoef, dcpcoef, geom, settings)
+
+    _, _, _, sps, nseg = geom
+    K, nr = env.c_cheb.shape[-1], env.c_cheb.shape[0]
+    dc, dcp = (torch.as_tensor(d, dtype=torch.float32, device=dev).contiguous()
+               for d in (dcoef, dcpcoef))
+    if dc.ndim != 2 or dc.shape[1] != K or dcp.shape != dc.shape:
+        raise ValueError(f"coefficient directions must be two (D, {K}) tables; got "
+                         f"{tuple(dc.shape)} and {tuple(dcp.shape)}")
+    if not 1 <= dc.shape[0] <= 65535 or (rd and nr > 65535):
+        raise ValueError("the kernel's grid takes 1 to 65535 directions and stations")
+    inp = _inputs(env, z0, p0, geom, settings)
+    B = inp.p0.shape[0]
+    tshape = (nr, dc.shape[0], B) if rd else (dc.shape[0], B)
+    outs = (tuple(torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3))
+            + tuple(torch.empty(tshape, dtype=torch.float32, device=dev) for _ in range(3))
+            + tuple(torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)))
+    if B > 0:
+        c = inp.consts
+        st_rows = _station_iw_rows(env, geom) if rd else ()  # held while the kernel reads them
+        _launch("trace_coef_tangent_rd_f32" if rd else "trace_coef_tangent_f32", dev,
+                [inp.p0.data_ptr(), inp.z0.data_ptr(), *inp.pointers(),
+                 *(t.data_ptr() for t in st_rows), dc.data_ptr(),
+                 dcp.data_ptr(), *(o.data_ptr() for o in outs),
+                 B, K, inp.bacoef.shape[0], sps * nseg, dc.shape[0], *([nr] if rd else []),
+                 int(c.bangle_cheb), int(c.term_back)],
+                inp, geom)
+        if rd:
+            COEF_TANGENT_RD_LAUNCHES += 1
+        else:
+            COEF_TANGENT_LAUNCHES += 1
+    return outs
+
+
+def trace_coef_tangent_kernel(env, z0, p0, dcoef, dcpcoef, geom, settings):
+    """Final-state trace with one forward tangent per coefficient direction
+    of a range-independent spectral fit, through the CUDA kernel: direction
+    d perturbs the Chebyshev coefficients ``c + a * dcoef[d]`` and ``dc/dz
+    + a * dcpcoef[d]`` together.  Returns ``(T, z, p, dT, dz, dp, n_surf,
+    n_bott, death)``: the primal fields and counters (B,), the tangents (D,
+    B), in the ODE convention (counterpart of ``trace_pallas_coef_tangent``).
+    The series are evaluated by Clenshaw whatever ``env.poly_ok`` says (the
+    wrapper traces ``dataclasses.replace(env, poly_ok=False)``); no Kahan
+    compensation.
+
+    On a CUDA environment this launches the kernel or raises; on a CPU
+    environment it runs the plain version, ``_trace_coef_tangent_impl``.
+    """
+    return _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd=False)
+
+
+def trace_coef_tangent_rd_kernel(env, z0, p0, dcoef, dcpcoef, geom, settings):
+    """``trace_coef_tangent_kernel`` for a range-dependent spectral fit:
+    every direction g of ``(dcoef, dcpcoef)`` (Dk, K) applied at each
+    station j in turn, through the CUDA kernel.  Returns the primal fields
+    and counters (B,) and the tangents (nr, Dk, B) (counterpart of
+    ``trace_pallas_coef_tangent_rd``).  Clenshaw whatever ``env.poly_ok``
+    says; no Kahan compensation.
+
+    On a CUDA environment this launches the kernel or raises; on a CPU
+    environment it runs the plain version, ``_trace_coef_tangent_rd_impl``.
+    """
+    return _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd=True)
