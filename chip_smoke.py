@@ -35,9 +35,9 @@ Monte-Carlo paths give them, drives
 width, and ``mc_eigenray_times`` at config 4b, and holds the Monte-Carlo
 answers to the JAX package's (``tests/fixtures/mc_jax_f32.npz``, written by
 ``tests/fixtures/make_mc_fixture.py``).  Adjoint: it holds the
-coefficient-tangent kernels (``trace_coef_tangent.cu``,
-``trace_coef_tangent_rd.cu``) to their plain versions at ``bench.py``'s two
-Jacobian shapes and on a bottom-bouncing fan, drives
+coefficient-tangent kernels (``trace_coef_tangent.cu``, range-independent
+and range-dependent) to their plain versions at ``bench.py``'s two Jacobian
+shapes, on a bottom-bouncing fan and at the inversion's shapes, drives
 ``travel_time_jacobian`` / ``travel_time_jacobian_2d`` and
 ``examples/gradient_inversion_demo.py``'s 150-step inversion through
 ``travel_times_of_coef`` at full size, and holds every adjoint operator to
@@ -124,7 +124,12 @@ EIG_TIME_S = 1e-5
 # bounds: FP32 operations a ray-step, counted from the sources (one op per
 # add, multiply, divide, compare-select or special function), over the
 # card's published peaks (NVIDIA's H100 SXM data sheet, 700 W: 67 TFLOP/s
-# FP32 outside the tensor cores, 3.35 TB/s HBM)
+# FP32 outside the tensor cores, 3.35 TB/s HBM).  The 67 TFLOP/s count a
+# fused multiply-add as two operations: it is 33.5e12 FFMA instructions a
+# second.  The kernels are built with -fmad=false, so each counted add or
+# multiply issues as an instruction of its own, at most 33.5e12 FADD/FMUL a
+# second: their own floor is twice the bound, which is that of a kernel
+# fusing every multiply with an add.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # a Dual operation costs 2.5 plain ones (a Horner term: 5 against 2)
@@ -178,6 +183,12 @@ STATION_SUM_REL = 1e-4
 ADJ_T_S = 1e-4
 ADJ_J_REL = {"ri": 2e-3, "rd": 3e-3, "vjp": 3e-3, "fermat": 1e-4, "fermat_seg": 1e-3}
 ADJ_GRAD = 1e-9
+# the Fermat operators and endpoint gradients on the default fit (poly_ok,
+# the Horner series): in float32 the two packages round it apart near the
+# top of the depth domain (ROADMAP C), held at the bounds that gap reads on
+# a CPU (tests/test_torch_adjoint.py: T 1.3e-4 s, G 3.2e-4 of its largest
+# entry, the endpoint gradients 1.3e-8 s/m)
+ADJ_HORNER = {"T": 2e-4, "G": 5e-4, "grad": 5e-8}
 COUNTERS = ("LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES",
             "TANGENT_ENS_LAUNCHES", "COEF_TANGENT_LAUNCHES", "COEF_TANGENT_RD_LAUNCHES")
 # final depth vs the oracle: the depth a 15-degree ray crosses within the
@@ -1196,13 +1207,17 @@ def unit_directions(cx, env):
 
 def coef_step_ops(env):
     """FP32 operations of one coefficient-tangent ray-step, counted from
-    tangent_step.cuh and dual.cuh: four right-hand sides of two K-term
-    Clenshaw series on Duals with Dual coefficients (11 a term: 2u, its
-    product with b1, the coefficient's hat product and sum, the
-    subtraction; 7 to close), and the rest of the step at DUAL_FACTOR times
-    the forward step's (18 a right-hand side, 50 for the rest)."""
+    tangent_step.cuh and dual.cuh as the compiled loop runs them: four
+    right-hand sides of two K-term Clenshaw series on Duals with Dual
+    coefficients (a series: 2u once, 2; each of its K - 1 terms and its
+    close a Dual product, 4, a Dual sum with the coefficient and a Dual
+    difference, 4, and range-dependent the hat product of the coefficient's
+    tangent, 1; range-independent the hat is the constant 1 and folds away),
+    and the rest of the step at DUAL_FACTOR times the forward step's (18 a
+    right-hand side, 50 for the rest)."""
     K = env.c_cheb.shape[-1]
-    return 4 * (2 * ((K - 1) * 11 + 7) + 18 * DUAL_FACTOR) + 50 * DUAL_FACTOR
+    series = 2 + K * (8 + int(bool(env.range_dependent)))
+    return 4 * (2 * series + 18 * DUAL_FACTOR) + 50 * DUAL_FACTOR
 
 
 def coef_bound(out, env, nsteps):
@@ -1414,7 +1429,8 @@ def inversion_phase(cx):
     cc0||² through ``travel_times_of_coef``.  One step's launches: one fan
     launch forward, ceil(K / chunk) B6 launches backward.  The misfit must
     drop 20 times (the demo's 0.05); the held-out correlation the demo
-    prints is reported."""
+    prints is reported.  B6 and the fan kernel are then held to their plain
+    versions at the shapes a step gives them (``inversion_kernels``)."""
     torch, pt, P = cx.torch, cx.pt, INV
     from pygenray_tpu_torch.adjoint import _COEF_VJP_CHUNK_ELEMS, travel_times_of_coef
 
@@ -1466,17 +1482,7 @@ def inversion_phase(cx):
 
     _, wall, n = counted(cx, adam)
     hist = [float(x) for x in hist]
-    # B6 alone at the inversion's backward shape (9 stations x 32 directions
-    # x 128 rays x 300 steps), on the starting field
-    h, sps, nseg = cx.plan(0.0, P["r_max"], 2, P["dx"])
-    g_inv = (0.0, P["r_max"], h, sps, nseg)
-    d_inv, dp_inv = unit_directions(cx, env0)
-    p0_inv = on_card(cx, p0)
-    b6_inv = cx.stepper.trace_coef_tangent_rd_kernel(env0, SRC_DEPTH, p0_inv, d_inv, dp_inv,
-                                                     g_inv, s)
-    b6_inv_ms = events_ms(lambda: cx.stepper.trace_coef_tangent_rd_kernel(
-        env0, SRC_DEPTH, p0_inv, d_inv, dp_inv, g_inv, s), n=10)
-    b6_inv_bound, b6_inv_by = coef_bound(b6_inv, env0, sps * nseg)
+    kern = inversion_kernels(cx, env0, p0, cc, s)
     require_counts("inversion", n, LAUNCHES=P["iters"], COEF_TANGENT_RD_LAUNCHES=chunks * P["iters"])
     drop = hist[0] / max(hist[-1], 1e-300)
     # the demo's held-out skill: travel-time anomalies of an offset fan
@@ -1494,12 +1500,57 @@ def inversion_phase(cx):
            "drop": drop, "required_drop": 1.0 / P["drop"], "heldout_corr": cor,
            "heldout_residual_rms_ms": rms_res * 1e3, "heldout_signal_rms_ms": rms_sig * 1e3,
            "launches": {k: v for k, v in n.items() if v}, "wall_s": wall,
-           "ms_per_step": wall / P["iters"] * 1e3, "b6_launches_per_step": chunks,
-           "b6_event_ms": b6_inv_ms, "b6_bound_ms": b6_inv_bound, "b6_bound_by": b6_inv_by}
+           "ms_per_step": wall / P["iters"] * 1e3, "b6_launches_per_step": chunks, **kern}
     emit("gradient_inversion", card=cx.smi, **out)
     require(all(np.isfinite(hist)), "non-finite misfit")
     require(hist[-1] < hist[0] * P["drop"], f"the misfit dropped {drop:.3g}x, not 20x")
     return out
+
+
+def inversion_kernels(cx, env0, p0, cc, s):
+    """B6 and the fan kernel at the shapes an inversion step gives them (9
+    stations x 32 directions x 128 rays x 300 steps; 128 rays, 2 saves), on
+    the field of the inversion's last coefficients as ``travel_times_of_coef``
+    builds it (dc/dz consistent, Clenshaw), with the step's own unit
+    directions: each against its plain version, B6's primal against B2's on
+    the same field, event times, plain times and bounds."""
+    import dataclasses as dc
+
+    from pygenray_tpu_torch.adjoint import _CoefTimes, _directions
+    from pygenray_tpu_torch.integrate import _trace_coef_tangent_rd_impl
+
+    torch, pt, st, P = cx.torch, cx.pt, cx.stepper, INV
+    op = _CoefTimes(env0, SRC_DEPTH, p0, 0.0, P["r_max"], s)
+    env_k, geom = op.env_with(cc), op.geom
+    require(env_k.range_dependent and not env_k.poly_ok, "the inversion's field is not the "
+            "range-dependent Clenshaw fit its kernels see")
+    d_inv, dp_inv = _directions(op.Dm)
+    b6 = st.trace_coef_tangent_rd_kernel(env_k, SRC_DEPTH, op.p0, d_inv, dp_inv, geom, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b6_p = _trace_coef_tangent_rd_impl(env_k, SRC_DEPTH, op.p0, d_inv, dp_inv, geom, s)
+    torch.cuda.synchronize()
+    b6_plain_ms = (time.perf_counter() - t0) * 1e3
+    b6_err = compare_coef("b6_inversion", b6, b6_p)
+    coef_lockstep("b6_inversion", b6, st.trace_tangent_kernel(env_k, SRC_DEPTH, op.p0, 0.0,
+                                                               geom, s))
+    b6_ms = events_ms(lambda: st.trace_coef_tangent_rd_kernel(env_k, SRC_DEPTH, op.p0, d_inv,
+                                                              dp_inv, geom, s), n=10)
+    b6_bound, b6_by = coef_bound(b6, env_k, geom[3] * geom[4])
+
+    fan = st.trace_kernel(env_k, SRC_DEPTH, op.p0, geom, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fan_p = pt.trace(env_k, SRC_DEPTH, op.p0, 0.0, P["r_max"], 2, dc.replace(s, backend="ops"))
+    torch.cuda.synchronize()
+    fan_plain_ms = (time.perf_counter() - t0) * 1e3
+    fan_err = compare("fan_inversion", fan, fan_p)
+    fan_ms = events_ms(lambda: st.trace_kernel(env_k, SRC_DEPTH, op.p0, geom, s), n=10)
+    fan_bound_ms, fan_by = fan_bound(fan, env_k, geom[3])
+    return {"b6_event_ms": b6_ms, "b6_plain_ms": b6_plain_ms, "b6_bound_ms": b6_bound,
+            "b6_bound_by": b6_by, "b6_max_abs_err": b6_err,
+            "fan_event_ms": fan_ms, "fan_plain_ms": fan_plain_ms, "fan_bound_ms": fan_bound_ms,
+            "fan_bound_by": fan_by, "fan_max_abs_err_live": fan_err}
 
 
 def adjoint_vs_jax_phase(cx):
@@ -1508,7 +1559,8 @@ def adjoint_vs_jax_phase(cx):
     the coefficient-tangent kernels (B5, B6) and the ``torch.func.jacfwd``
     fallback against its Pallas kernels and jacfwd, the vjp through the
     kernels, the Fermat operators (spectral and segment), the perturbation
-    response and the endpoint gradients; errors stated, bounds
+    response and the endpoint gradients (the spectral ones on the Clenshaw
+    series and on the default Horner fit); errors stated, bounds
     ``ADJ_*``."""
     import dataclasses as dc
     import importlib.util
@@ -1561,7 +1613,7 @@ def adjoint_vs_jax_phase(cx):
         absol(f"vjp_{kind}_T", Tv, fx[f"vjp_{kind}/T"], ADJ_T_S)
         rel(f"vjp_{kind}_g", g, fx[f"vjp_{kind}/g"], ADJ_J_REL["vjp"])
         # the Fermat and endpoint traces on the Clenshaw series, as the
-        # fixture's (ROADMAP C: the Horner series round apart in float32)
+        # Jacobians, within the JAX tests' bounds
         env_c = dc.replace(env, poly_ok=False)
         Tq, G = adj.fermat_jacobian(env_c, zs, p0, 0.0, x1, s, num_save=P["fermat_saves"])
         absol(f"fermat_{kind}_T", Tq, fx[f"fermat_{kind}/T"], ADJ_T_S)
@@ -1574,6 +1626,21 @@ def adjoint_vs_jax_phase(cx):
             absol("endpoint_T", Te, fx["endpoint/T"], ADJ_T_S)
             absol("endpoint_dT_dz_src", d_src, fx["endpoint/dT_dz_src"], ADJ_GRAD)
             absol("endpoint_dT_dz_rcv", d_rcv, fx["endpoint/dT_dz_rcv"], ADJ_GRAD)
+        # the same on the default fit, at the bounds its float32 gap reads
+        require(env.poly_ok, f"{kind}: the default fit is not the Horner variant")
+        Tq, G = adj.fermat_jacobian(env, zs, p0, 0.0, x1, s, num_save=P["fermat_saves"])
+        absol(f"fermat_{kind}_horner_T", Tq, fx[f"fermat_{kind}_horner/T"], ADJ_HORNER["T"])
+        rel(f"fermat_{kind}_horner_G", G, fx[f"fermat_{kind}_horner/G"], ADJ_HORNER["G"])
+        if kind == "ri":
+            dT = adj.perturbation_response(G, env, F.perturbation(P, env.z.cpu().numpy()))
+            rel("perturbation_response_horner", dT, fx["pert_horner/dT"], ADJ_J_REL["fermat"])
+        else:
+            Te, d_src, d_rcv = adj.endpoint_time_gradients(env, zs, p0, 0.0, x1, s)
+            absol("endpoint_horner_T", Te, fx["endpoint_horner/T"], ADJ_HORNER["T"])
+            absol("endpoint_horner_dT_dz_src", d_src, fx["endpoint_horner/dT_dz_src"],
+                  ADJ_HORNER["grad"])
+            absol("endpoint_horner_dT_dz_rcv", d_rcv, fx["endpoint_horner/dT_dz_rcv"],
+                  ADJ_HORNER["grad"])
     S = P["seg"]
     env_s = pt.make_env_data(*F.rough_tables(P, pt.munk_ssp), interp="seg", dtype=torch.float32,
                              device=cx.dev)
@@ -1941,6 +2008,11 @@ def main() -> int:
         "ms_config1": rd_ms,
         "plain_ms_config1": rd_plain_s * 1e3,
         "bound_ms_config1": rd_bound_ms,
+        "launches_inversion": inv["launches"]["LAUNCHES"],  # one a step, forward
+        "max_abs_err_inversion": inv["fan_max_abs_err_live"]["ts"],
+        "ms_inversion": inv["fan_event_ms"],
+        "plain_ms_inversion": inv["fan_plain_ms"],
+        "bound_ms_inversion": inv["fan_bound_ms"],
     }, {
         "name": "trace_tangent_f32",
         "route": "cuda",
@@ -2045,12 +2117,14 @@ def main() -> int:
         "plain_shape": f"{2 * JAC_RAYS} rays x 16 directions",
         "wall_ms_travel_time_jacobian": adj_paths["jacobian"]["median_ms"],
     }, {
-        # bench.py's 2D Jacobian: 64 rays x 16 directions x 32 stations x
-        # 1,000 steps; launches: one per travel_time_jacobian_2d, and one per
-        # step of the inversion below
-        "name": "trace_coef_tangent_rd_f32",
+        # trace_coef_tangent_f32's range-dependent kernel (B6) at bench.py's
+        # 2D Jacobian: 64 rays x 16 directions x 32 stations x 1,000 steps;
+        # launches: one per travel_time_jacobian_2d, and one per step of the
+        # inversion, whose shape (9 x 32 x 128 x 300 steps) the *_inversion
+        # keys give
+        "name": "trace_coef_tangent_f32_rd",
         "route": "cuda",
-        "source": "pygenray_tpu_torch/csrc/trace_coef_tangent_rd.cu",
+        "source": "pygenray_tpu_torch/csrc/trace_coef_tangent.cu",
         "replaces": "pygenray_tpu/ops/pallas_stepper.py:1619",
         "launches": adj_paths["jacobian_2d"]["launches"]["COEF_TANGENT_RD_LAUNCHES"],
         "launches_inversion": inv["launches"]["COEF_TANGENT_RD_LAUNCHES"],
@@ -2066,7 +2140,9 @@ def main() -> int:
                  f"{coef_times['b6']['steps']} steps",
         "wall_ms_travel_time_jacobian_2d": adj_paths["jacobian_2d"]["median_ms"],
         "inversion_ms_per_step": inv["ms_per_step"],
+        "max_abs_err_inversion": inv["b6_max_abs_err"]["dT"],
         "ms_inversion": inv["b6_event_ms"],
+        "plain_ms_inversion": inv["b6_plain_ms"],
         "bound_ms_inversion": inv["b6_bound_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

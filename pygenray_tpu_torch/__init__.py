@@ -11,7 +11,7 @@ transmission-loss fields) as a save-grid forward-tangent kernel
 an ensemble of environments as an ensemble forward-tangent kernel
 (``csrc/trace_tangent_ens.cu``), and the travel-time Jacobians and
 coefficient gradients of tomography (``adjoint.py``) as coefficient-tangent
-kernels (``csrc/trace_coef_tangent.cu``, ``csrc/trace_coef_tangent_rd.cu``);
+kernels (``csrc/trace_coef_tangent.cu``, range-independent and per station);
 on the CPU all six run as torch-op step loops.  The entry points build their tensors
 on the CUDA device unless the caller passes ``device="cpu"``.  This package
 imports torch, numpy and scipy, never jax.

@@ -16,9 +16,9 @@ operator, and the first-order (Fermat) path-integral kernel:
 - ``endpoint_time_gradients``: analytic eikonal dT/d(endpoint depths)
 
 On a CUDA environment the exact derivatives run as the coefficient-tangent
-kernels (``ops/stepper.py``: ``csrc/trace_coef_tangent.cu`` for a
-range-independent fit, ``csrc/trace_coef_tangent_rd.cu`` per station of a
-range-dependent one), one launch for a whole Jacobian.  Elsewhere they are
+kernels (``ops/stepper.py``: ``csrc/trace_coef_tangent.cu``, for a
+range-independent fit or per station of a range-dependent one), one launch
+for a whole Jacobian.  Elsewhere they are
 ``torch.func.jacfwd`` / ``jacrev`` through the torch-op loop
 (``integrate._trace_impl``), or plain autograd through it for a
 vector-Jacobian product.

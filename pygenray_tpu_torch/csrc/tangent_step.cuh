@@ -2,7 +2,7 @@
 // forward-tangent kernels: trace_tangent.cu (final state only),
 // trace_tangent_save.cu (state and tangent at every save point),
 // trace_tangent_ens.cu (over an ensemble) and the coefficient-tangent
-// kernels trace_coef_tangent.cu and trace_coef_tangent_rd.cu.  One
+// kernels of trace_coef_tangent.cu.  One
 // definition, so the kernels cannot drift apart: the save-grid kernel's last
 // row is the final-state kernel's output bit for bit, and the
 // coefficient-tangent kernels' primal is the final-state kernel's on the

@@ -872,7 +872,7 @@ def _trace_coef_tangent_rd_impl(env: EnvData, z0, p0, dcoef, dcpcoef, geom,
     carrying the perturbation with its hat weight).  Returns the primal
     fields and counters (B,) and the tangents (nr, Dk, B), as the JAX
     package's ``trace_pallas_coef_tangent_rd`` does.  The plain version of
-    ``csrc/trace_coef_tangent_rd.cu``; its primal is ``_trace_tangent_impl``
+    ``csrc/trace_coef_tangent.cu``'s range-dependent kernel; its primal is ``_trace_tangent_impl``
     on the ``poly_ok=False`` environment, bit for bit."""
     if not env.range_dependent:
         raise ValueError("the range-dependent coefficient-tangent trace requires a "

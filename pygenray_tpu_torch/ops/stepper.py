@@ -26,7 +26,7 @@ Counterparts of the six Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py
 * ``trace_coef_tangent_kernel`` and ``trace_coef_tangent_rd_kernel`` — the
   coefficient-tangent kernels (``trace_pallas_coef_tangent``, :1518, and
   ``trace_pallas_coef_tangent_rd``, :1820), in ``csrc/trace_coef_tangent.cu``
-  and ``csrc/trace_coef_tangent_rd.cu``: the same step with the tangent
+  (one kernel template, range-independent or RD): the same step with the tangent
   taken along directions of the Chebyshev coefficients (per station, for a
   range-dependent fit) instead of the launch parameters; the engine of the
   travel-time Jacobians and coefficient gradients of ``adjoint.py``.
@@ -81,8 +81,8 @@ SEG_LAUNCHES = 0  # trace_fan_f32 in its segment mode (counted in LAUNCHES too)
 TANGENT_LAUNCHES = 0  # trace_tangent_f32
 TANGENT_SAVE_LAUNCHES = 0  # trace_tangent_save_f32
 TANGENT_ENS_LAUNCHES = 0  # trace_tangent_ens_f32
-COEF_TANGENT_LAUNCHES = 0  # trace_coef_tangent_f32
-COEF_TANGENT_RD_LAUNCHES = 0  # trace_coef_tangent_rd_f32
+COEF_TANGENT_LAUNCHES = 0  # trace_coef_tangent_f32, range-independent
+COEF_TANGENT_RD_LAUNCHES = 0  # trace_coef_tangent_f32, range-dependent
 
 MAX_K = 256  # coefficient rows held in shared memory (csrc TF_MAX_K)
 MAX_KB = 128  # bottom-angle series length (csrc TF_MAX_KB)
@@ -307,14 +307,9 @@ _ARGTYPES = {
         + [_I] * 8 + _TAIL  # E M K Kb nsteps use_pow bangle_cheb term_back
     ),
     "trace_coef_tangent_f32": (
-        [_P] * 2 + _IN + [_P] * 2  # p0 z0, inputs, dcoef dcpcoef (D, K)
-        + [_P] * 9  # T z p (B,), dT dz dp (D, B), n_surf n_bott death (B,)
-        + [_I] * 7 + _TAIL  # B K Kb nsteps D bangle_cheb term_back
-    ),
-    "trace_coef_tangent_rd_f32": (
-        [_P] * 2 + _IN + [_P] * 4  # p0 z0, inputs, st_i st_w, dcoef dcpcoef (Dk, K)
-        + [_P] * 9  # T z p (B,), dT dz dp (nr, Dk, B), n_surf n_bott death (B,)
-        + [_I] * 8 + _TAIL  # B K Kb nsteps Dk nr bangle_cheb term_back
+        [_P] * 2 + _IN + [_P] * 4  # p0 z0, inputs, st_i st_w, dcoef dcpcoef (D, K)
+        + [_P] * 9  # T z p (B,), dT dz dp (nr, D, B), n_surf n_bott death (B,)
+        + [_I] * 8 + _TAIL  # B K Kb nsteps D nr bangle_cheb term_back
     ),
 }
 _FNS = {}
@@ -552,8 +547,8 @@ def trace_tangent_ensemble_kernel(env_ens, z0, p0, dp0, geom, settings, sd=None)
 
 def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd):
     """Both coefficient-tangent wrappers: the checks, the plain version on
-    a CPU environment, else one launch of ``trace_coef_tangent_f32`` or
-    (``rd``) ``trace_coef_tangent_rd_f32``, counted."""
+    a CPU environment, else one launch of ``trace_coef_tangent_f32``
+    (range-independent, or ``rd``), counted."""
     global COEF_TANGENT_LAUNCHES, COEF_TANGENT_RD_LAUNCHES
     if bool(env.range_dependent) != rd:
         raise ValueError("trace_coef_tangent_rd_kernel takes range-dependent fits and "
@@ -584,11 +579,11 @@ def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd):
     if B > 0:
         c = inp.consts
         st_rows = _station_iw_rows(env, geom) if rd else ()  # held while the kernel reads them
-        _launch("trace_coef_tangent_rd_f32" if rd else "trace_coef_tangent_f32", dev,
+        _launch("trace_coef_tangent_f32", dev,
                 [inp.p0.data_ptr(), inp.z0.data_ptr(), *inp.pointers(),
-                 *(t.data_ptr() for t in st_rows), dc.data_ptr(),
+                 *((t.data_ptr() for t in st_rows) if rd else (None, None)), dc.data_ptr(),
                  dcp.data_ptr(), *(o.data_ptr() for o in outs),
-                 B, K, inp.bacoef.shape[0], sps * nseg, dc.shape[0], *([nr] if rd else []),
+                 B, K, inp.bacoef.shape[0], sps * nseg, dc.shape[0], nr if rd else 1,
                  int(c.bangle_cheb), int(c.term_back)],
                 inp, geom)
         if rd:

@@ -237,8 +237,8 @@ def test_build_flags_and_source_hash(monkeypatch):
     flags = _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert not any("fast_math" in f for f in flags)
-    assert _build.sources() == ["trace_coef_tangent", "trace_coef_tangent_rd", "trace_fan",
-                                "trace_tangent", "trace_tangent_ens", "trace_tangent_save"]
+    assert _build.sources() == ["trace_coef_tangent", "trace_fan", "trace_tangent",
+                                "trace_tangent_ens", "trace_tangent_save"]
     for name in _build.sources():
         src = (_build.CSRC / f"{name}.cu").read_text()
         entry = f'extern "C" int {name}_f32('
