@@ -236,6 +236,7 @@ class _CoefTimes:
         self.p0 = _launch_batch(env, p0)
         self.settings = settings
         self.geom = _geom(x0, x1, settings)
+        self._geo = None  # the plan's kernel inputs, shared by every iterate
         self.rd = bool(env.range_dependent)
         self.Dm = _deriv_matrix(env)
         if self.rd:
@@ -252,13 +253,25 @@ class _CoefTimes:
             cp2 = (self.cp_offset + self.Dm @ cc).expand(env.dcdz_cheb.shape)
         return dataclasses.replace(env, c_cheb=cc2, dcdz_cheb=cp2, poly_ok=False)
 
+    def geo(self):
+        """The per-step kernel inputs of the plan (``step_geometry``): every
+        iterate has the stations and bathymetry of ``env``, so they are
+        built once, at the first launch on the card (None on the CPU, where
+        the wrappers run the plain versions)."""
+        if self._geo is None and self.env.device.type == "cuda":
+            from .ops.stepper import step_geometry
+
+            self._geo = step_geometry(self.env, self.geom)
+        return self._geo
+
     def times(self, cc) -> torch.Tensor:
         """The receiver travel times: one ``trace`` under the caller's
         backend (the fan kernel on the card), without Kahan compensation."""
-        from .integrate import trace
+        from .integrate import _trace_planned
 
         s = dataclasses.replace(self.settings, kahan=False)
-        return trace(self.env_with(cc), self.z0, self.p0, self.x0, self.x1, 2, s).ts[:, -1]
+        env2 = self.env_with(cc)
+        return _trace_planned(env2, self.z0, self.p0, self.geom, s, self.geo()).ts[:, -1]
 
     def vjp(self, cc, v) -> torch.Tensor:
         """Jᵀv for the cotangent ``v`` (B,): the coefficient-tangent
@@ -281,11 +294,11 @@ class _CoefTimes:
                 hi = min(lo + Dk, K)
                 if self.rd:
                     out = trace_coef_tangent_rd_kernel(env2, self.z0, self.p0, dc[lo:hi],
-                                                       dcp[lo:hi], self.geom, s_k)
+                                                       dcp[lo:hi], self.geom, s_k, self.geo())
                     gs.append(torch.einsum("jdb,b->jd", out[3], vv))
                 else:
                     out = trace_coef_tangent_kernel(env2, self.z0, self.p0, dc[lo:hi],
-                                                    dcp[lo:hi], self.geom, s_k)
+                                                    dcp[lo:hi], self.geom, s_k, self.geo())
                     gs.append(out[3] @ vv)
             return torch.cat(gs, dim=-1).to(cc.dtype)
         settings_x = dataclasses.replace(s, backend="ops", kahan=False)

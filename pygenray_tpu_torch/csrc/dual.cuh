@@ -87,20 +87,3 @@ __device__ __forceinline__ Dual dclenshaw(const float* c, int K, Dual u) {
   }
   return c[0] + u * b1 - b2;
 }
-
-// Chebyshev series with Dual coefficients {c[k], hat * dc[k]} at u: the
-// series perturbed along the direction dc, weighted by hat (a station's
-// share of a range-blended row; 1 for a range-independent fit, where
-// 1.0f * dc[k] is dc[k] exactly).  The tangent table of the plain version
-// (ops/dual.py's clenshaw over a Dual table) is the same single float32
-// product, formed before the recurrence.
-__device__ __forceinline__ Dual dclenshaw(const float* c, const float* dc, float hat, int K,
-                                          Dual u) {
-  Dual b1 = {0.0f, 0.0f}, b2 = {0.0f, 0.0f};
-  for (int k = K - 1; k >= 1; --k) {
-    const Dual t = Dual{c[k], hat * dc[k]} + 2.0f * u * b1 - b2;
-    b2 = b1;
-    b1 = t;
-  }
-  return Dual{c[0], hat * dc[0]} + u * b1 - b2;
-}

@@ -9,9 +9,13 @@
 // same Clenshaw rows.
 //
 // The step reads the profile's two series through a row type: `Rows`
-// (constant coefficients; the launch-parameter tangents) or `CoefRows`
+// (constant coefficients; the launch-parameter tangents) or `CoefRows<KC>`
 // (coefficients that carry a tangent along a direction of the Chebyshev
-// coefficients, weighted by a station's hat; Clenshaw only).
+// coefficients, weighted by a station's hat; Clenshaw only; K fixed at
+// compile time when KC > 0).  `CoefRows` evaluates the c and dc/dz series
+// in one loop: each recurrence keeps its own operations in their order
+// (the bits do not move), and the two independent chains overlap.  `Rows`
+// (the kernels B2-B4) evaluates them in two loops.
 //
 // Replaces `_make_step_math` of the Pallas TPU tangent kernels
 // (pygenray_tpu/ops/pallas_stepper.py:730-823).  The step is written over the
@@ -58,7 +62,9 @@ struct Rows {
 
 // the (c, dc/dz) series with coefficients {c[k], hat * dc[k]}: perturbed
 // along the direction (dc, dcp), with the station's weight hat in the
-// blended row (1 for a range-independent fit)
+// blended row (1 for a range-independent fit); KC > 0: K = KC at compile
+// time
+template <int KC>
 struct CoefRows {
   const float* c;
   const float* cp;
@@ -67,26 +73,54 @@ struct CoefRows {
   float hat;
 };
 
+// both series of a profile at u: (c, dc/dz)
+template <bool POW>
+__device__ __forceinline__ void series2(const Rows& r, int K, Dual u, Dual& c, Dual& cp) {
+  c = dpoly<POW>(r.c, K, u);
+  cp = dpoly<POW>(r.cp, K, u);
+}
+
 template <bool POW>
 __device__ __forceinline__ Dual series_c(const Rows& r, int K, Dual u) {
   return dpoly<POW>(r.c, K, u);
 }
 
-template <bool POW>
-__device__ __forceinline__ Dual series_cp(const Rows& r, int K, Dual u) {
-  return dpoly<POW>(r.cp, K, u);
+// coefficient k of a series with its tangent, hat * dc[k] (the plain
+// version's Dual table holds the same single float32 product)
+__device__ __forceinline__ Dual coef_at(const float* c, const float* dc, float hat, int k) {
+  return {c[k], hat * dc[k]};
 }
 
-template <bool POW>
-__device__ __forceinline__ Dual series_c(const CoefRows& r, int K, Dual u) {
+// Clenshaw over Dual coefficients, the c and dc/dz series in one loop
+template <bool POW, int KC>
+__device__ __forceinline__ void series2(const CoefRows<KC>& r, int Kp, Dual u, Dual& c,
+                                        Dual& cp) {
   static_assert(!POW, "coefficient tangents are evaluated by Clenshaw only");
-  return dclenshaw(r.c, r.dc, r.hat, K, u);
+  const int K = KC > 0 ? KC : Kp;
+  Dual b1 = {0.0f, 0.0f}, b2 = {0.0f, 0.0f}, q1 = {0.0f, 0.0f}, q2 = {0.0f, 0.0f};
+  for (int k = K - 1; k >= 1; --k) {
+    const Dual t = coef_at(r.c, r.dc, r.hat, k) + 2.0f * u * b1 - b2;
+    b2 = b1;
+    b1 = t;
+    const Dual tp = coef_at(r.cp, r.dcp, r.hat, k) + 2.0f * u * q1 - q2;
+    q2 = q1;
+    q1 = tp;
+  }
+  c = coef_at(r.c, r.dc, r.hat, 0) + u * b1 - b2;
+  cp = coef_at(r.cp, r.dcp, r.hat, 0) + u * q1 - q2;
 }
 
-template <bool POW>
-__device__ __forceinline__ Dual series_cp(const CoefRows& r, int K, Dual u) {
+template <bool POW, int KC>
+__device__ __forceinline__ Dual series_c(const CoefRows<KC>& r, int Kp, Dual u) {
   static_assert(!POW, "coefficient tangents are evaluated by Clenshaw only");
-  return dclenshaw(r.cp, r.dcp, r.hat, K, u);
+  const int K = KC > 0 ? KC : Kp;
+  Dual b1 = {0.0f, 0.0f}, b2 = {0.0f, 0.0f};
+  for (int k = K - 1; k >= 1; --k) {
+    const Dual t = coef_at(r.c, r.dc, r.hat, k) + 2.0f * u * b1 - b2;
+    b2 = b1;
+    b1 = t;
+  }
+  return coef_at(r.c, r.dc, r.hat, 0) + u * b1 - b2;
 }
 
 struct DDeriv {
@@ -101,8 +135,8 @@ __device__ __forceinline__ Dual ev_c(const R& r, const Params& P, Dual z) {
 template <bool POW, class R>
 __device__ __forceinline__ DDeriv rhs(const R& r, const Params& P, Dual z, Dual p) {
   const Dual u = dclip(P.sc * z - P.off, -1.0f, 1.0f);
-  const Dual c = series_c<POW>(r, P.K, u);
-  const Dual cp = series_cp<POW>(r, P.K, u);
+  Dual c, cp;
+  series2<POW>(r, P.K, u, c, cp);
   const Dual cp2 = c * p;
   const Dual inv_s = drsqrt(dmax(1.0f - cp2 * cp2, TS_TINY));
   const Dual invc = 1.0f / c;

@@ -44,26 +44,41 @@
 // layout and are not carried over: here the grid has an axis per direction
 // and per station.
 //
-// Design: grid (ceil(B / 64), D, nr), nr = 1 range-independent.  Block
-// (x, g, j) copies the launch range's rows, the bottom-angle series and
+// Design.  Range-independent (B5): grid (ceil(B / 64), D), one direction a
+// thread.  Block (x, g) copies the launch rows, the bottom-angle series and
 // direction g's two rows to shared memory and traces rays x * 64 ...
 // x * 64 + 63 with the state in registers for all steps; a dead ray is
-// frozen.  Range-dependent, the per-step blended rows (nsteps, K) at
-// mid-step and step end come from global memory, as in B2's RD path (every
-// thread of the grid reads the same row at step k: broadcasts served from
-// L1 and L2).  The primal and the counters do not depend on the direction or
-// the station: the threads of (j, g) = (0, 0) write them (the JAX kernels
-// return block 0's copy).  Blocks of 64 threads, as B2: at bench.py's
-// Jacobian (512 rays x 16 directions) the grid is 8 x 16 blocks, at its 2D
-// Jacobian (64 rays x 16 directions x 32 stations) 1 x 16 x 32, four per SM
-// of the card's 132.  The grid's y and z extents are at most 65,535 each.
+// frozen.  Range-dependent (B6): grid (ceil(B / 64), D, nr), one
+// direction of one station a thread, as B5: carrying N directions over one
+// primal path measured slower for N = 2, 4 and 8 at the main paths' shapes
+// (PERF.md), which hold one or two warps a scheduler.  The stations'
+// (nr, K) tables sit in shared memory (in global memory, read through L1,
+// when 2 nr K floats would not fit), and each step's blended
+// rows are made in the kernel from them: the block blends step k + 1's
+// four rows, (1 - w) t[i] + w t[i + 1] (integrate._blend_rows' expression,
+// float for float), into one half of a double buffer while it steps with
+// step k's rows from the other half, one barrier a step, and keeps the
+// rows' station intervals (i, w) beside them for the hat weights.  So the
+// wrapper builds no per-step rows, and no coefficient load waits on global
+// memory.  A block's threads stay in the step loop together (a dead or
+// masked ray skips the step but not the barrier) until none of its rays is
+// alive.  The c and dc/dz series run in one loop (tangent_step.cuh's
+// `CoefRows`), their two recurrences overlapping; K = 16, 32 and 64, the
+// lengths the main paths use, are compiled with K fixed.  The primal and
+// the counters do not depend on the direction or the station: the threads
+// of (j, g) = (0, 0) write them (the JAX kernels return block 0's copy).
+// The grid's y and z extents are at most 65,535 each.
 //
-// What bounds it on an H100: FP32 issue.  Each series term is a Dual
-// Clenshaw term with a Dual coefficient (8 operations, 9 with the hat
-// product), about 2.5 times the forward step's operations a ray-step, as
-// B2; one thread's dependent steps set the time at these shapes.  It reads a
-// few kB (range-dependent, 4 x nsteps x K floats, read by every block) and
-// writes 3 x 4 B per thread and 6 x 4 B per ray.
+// What bounds it on an H100.  The work is FP32 issue: each series term is a
+// Dual Clenshaw term with a Dual coefficient, 3 operations for the primal
+// and 6 for each tangent (the hat product included), against the forward
+// step's 3.  It reads a few kB (the station tables) and writes 3 x 4 B per
+// (station, direction, ray) and 6 x 4 B per ray.  At the main paths' shapes
+// (the inversion: 9 x 32 x 128; the 2D Jacobian: 32 x 16 x 64) the card
+// holds about one warp per scheduler, so a thread's dependent chain of
+// steps (hundreds of series terms, each an add after a multiply) and its
+// own issue set the time, not the card's peak; the fused series halve the
+// chain of a right-hand side.
 //
 // Rounding: built with -fmad=false and without fast math (ops/_build.py),
 // as trace_fan.cu.
@@ -73,68 +88,147 @@
 #include "tangent_step.cuh"
 
 #define TC_BLOCK 64
+#define TC_MAX_SMEM (200 * 1024)  // dynamic shared memory a block may take, bytes
 
 namespace {
 
 using namespace tangent_step;
 
 // station j's weight in a row blended at the station interval (i, w)
-__device__ __forceinline__ float hat(const int* st_i, const float* st_w, int n, int j) {
-  const int i = st_i[n];
-  const float w = st_w[n];
+__device__ __forceinline__ float hat(int i, float w, int j) {
   return i == j ? 1.0f - w : (i == j - 1 ? w : 0.0f);
 }
 
-template <bool RD>
+// rows of one step, made by the block from the station tables: mid-step c
+// and dc/dz at the interval (im, wm), step-end c and dc/dz at (i1, w1),
+// each (1 - w) t[i] + w t[i + 1], into buf[0 .. 4K)
+__device__ __forceinline__ void blend_step(const float* ctab, const float* cptab, int K, int im,
+                                           float wm, int i1, float w1, float* buf) {
+  for (int q = threadIdx.x; q < 4 * K; q += blockDim.x) {
+    const int r = q / K;
+    const int k = q - r * K;
+    const float* t = (r & 1) ? cptab : ctab;
+    const int i = r < 2 ? im : i1;
+    const float w = r < 2 ? wm : w1;
+    buf[q] = (1.0f - w) * t[i * K + k] + w * t[(i + 1) * K + k];
+  }
+}
+
+template <bool RD, int KC>
 __global__ void __launch_bounds__(TC_BLOCK)
-trace_coef_tangent_kernel(Params P, const float* __restrict__ p0v, const float* __restrict__ z0v,
-                          const float* __restrict__ ccoef, const float* __restrict__ cpcoef,
-                          const float* __restrict__ bacoef, const float* __restrict__ b0s,
-                          const float* __restrict__ b1s, const unsigned char* __restrict__ xoob,
-                          const float* __restrict__ cms, const float* __restrict__ cpms,
-                          const float* __restrict__ c1s, const float* __restrict__ cp1s,
-                          const int* __restrict__ st_i, const float* __restrict__ st_w,
-                          const float* __restrict__ dcoef, const float* __restrict__ dcpcoef,
-                          float* __restrict__ T_out, float* __restrict__ z_out,
-                          float* __restrict__ p_out, float* __restrict__ dT_out,
-                          float* __restrict__ dz_out, float* __restrict__ dp_out,
-                          int* __restrict__ n_surf_out, int* __restrict__ n_bott_out,
-                          int* __restrict__ death_out) {
+trace_coef_tangent_kernel(Params P, int D, int nr, int tab_smem, const float* __restrict__ p0v,
+                          const float* __restrict__ z0v, const float* __restrict__ ccoef,
+                          const float* __restrict__ cpcoef, const float* __restrict__ bacoef,
+                          const float* __restrict__ b0s, const float* __restrict__ b1s,
+                          const unsigned char* __restrict__ xoob, const int* __restrict__ st_i,
+                          const float* __restrict__ st_w, const float* __restrict__ dcoef,
+                          const float* __restrict__ dcpcoef, float* __restrict__ T_out,
+                          float* __restrict__ z_out, float* __restrict__ p_out,
+                          float* __restrict__ dT_out, float* __restrict__ dz_out,
+                          float* __restrict__ dp_out, int* __restrict__ n_surf_out,
+                          int* __restrict__ n_bott_out, int* __restrict__ death_out) {
+  using R = CoefRows<KC>;
+  const int K = KC > 0 ? KC : P.K;
   const int g = blockIdx.y;  // direction
   const int j = blockIdx.z;  // perturbed station (0 range-independent)
-  // the launch range's rows, direction g's rows and the bottom-angle series
+  // the launch range's rows and the bottom-angle series; dynamic: the
+  // direction's two rows (K each), then (RD) the station tables when they
+  // fit and the double buffer of step rows (2, 4K)
   __shared__ float s_c[TS_MAX_K];
   __shared__ float s_cp[TS_MAX_K];
-  __shared__ float s_dc[TS_MAX_K];
-  __shared__ float s_dcp[TS_MAX_K];
   __shared__ float s_ba[TS_MAX_KB];
-  for (int k = threadIdx.x; k < P.K; k += blockDim.x) {
-    s_dc[k] = dcoef[(size_t)g * P.K + k];
-    s_dcp[k] = dcpcoef[(size_t)g * P.K + k];
+  __shared__ int s_i[2][2];    // RD: the buffer's station intervals, mid-step and step end
+  __shared__ float s_w[2][2];
+  extern __shared__ float s_dyn[];
+  float* s_dc = s_dyn;
+  float* s_dcp = s_dc + K;
+  float* s_tab = s_dcp + K;
+  float* s_buf = s_tab + (tab_smem ? 2 * nr * K : 0);
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    s_dc[k] = dcoef[(size_t)g * K + k];
+    s_dcp[k] = dcpcoef[(size_t)g * K + k];
   }
-  load_series(P, ccoef, cpcoef, bacoef, s_c, s_cp, s_ba);  // ends with a barrier
+  const float* ctab = ccoef;
+  const float* cptab = cpcoef;
+  int nim = 0, ni1 = 0;  // RD: the station intervals of the next step to blend
+  float nwm = 0.0f, nw1 = 0.0f;
+  if (RD) {
+    if (tab_smem) {
+      for (int q = threadIdx.x; q < nr * K; q += blockDim.x) {
+        s_tab[q] = ccoef[q];
+        s_tab[nr * K + q] = cpcoef[q];
+      }
+      __syncthreads();
+      ctab = s_tab;
+      cptab = s_tab + nr * K;
+    }
+    // the launch range's rows, and step 0's
+    const int i0 = st_i[0];
+    const float w0 = st_w[0];
+    for (int k = threadIdx.x; k < K; k += blockDim.x) {
+      s_c[k] = (1.0f - w0) * ctab[i0 * K + k] + w0 * ctab[(i0 + 1) * K + k];
+      s_cp[k] = (1.0f - w0) * cptab[i0 * K + k] + w0 * cptab[(i0 + 1) * K + k];
+    }
+    blend_step(ctab, cptab, K, st_i[1], st_w[1], st_i[2], st_w[2], s_buf);
+    if (threadIdx.x == 0) {
+      s_i[0][0] = st_i[1];
+      s_w[0][0] = st_w[1];
+      s_i[0][1] = st_i[2];
+      s_w[0][1] = st_w[2];
+    }
+    if (P.nsteps > 1) {
+      nim = st_i[3];
+      nwm = st_w[3];
+      ni1 = st_i[4];
+      nw1 = st_w[4];
+    }
+    for (int k = threadIdx.x; k < P.Kb; k += blockDim.x) s_ba[k] = bacoef[k];
+    __syncthreads();
+  } else {
+    load_series(P, ccoef, cpcoef, bacoef, s_c, s_cp, s_ba);  // ends with a barrier
+  }
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= P.B) return;
-  const StepInputs in = {b0s, b1s, xoob, cms, cpms, c1s, cp1s};
+  const bool act = b < P.B;
+  if (!RD && !act) return;
+  const StepInputs in = {b0s, b1s, xoob, nullptr, nullptr, nullptr, nullptr};
 
   // the launch tangents are 0: the direction enters through the series
-  const CoefRows r0 = {s_c, s_cp, s_dc, s_dcp, RD ? hat(st_i, st_w, 0, j) : 1.0f};
-  RayState s = initial_state<false>(r0, P, z0v[b], 0.0f, p0v[b], 0.0f);
-  for (int k = 0; k < P.nsteps && s.alive; ++k) {
-    if (RD) {
-      const size_t row = (size_t)k * P.K;
-      const CoefRows rm = {in.cms + row, in.cpms + row, s_dc, s_dcp,
-                           hat(st_i, st_w, 2 * k + 1, j)};  // mid-step
-      const CoefRows r1 = {in.c1s + row, in.cp1s + row, s_dc, s_dcp,
-                           hat(st_i, st_w, 2 * k + 2, j)};  // step's end
-      step_rows<false>(P, in, rm, r1, s_ba, k, s);
-    } else {
-      step_rows<false>(P, in, r0, r0, s_ba, k, s);
+  const R r0 = {s_c, s_cp, s_dc, s_dcp, RD ? hat(st_i[0], st_w[0], j) : 1.0f};
+  RayState s = initial_state<false>(r0, P, act ? z0v[b] : 0.0f, 0.0f, act ? p0v[b] : 0.0f, 0.0f);
+  s.alive = s.alive && act;
+  if (RD) {
+    for (int k = 0; k < P.nsteps; ++k) {
+      const int cur = k & 1;
+      float* rows = s_buf + cur * 4 * K;
+      if (k + 1 < P.nsteps) {  // step k + 1's rows into the other half
+        blend_step(ctab, cptab, K, nim, nwm, ni1, nw1, s_buf + (cur ^ 1) * 4 * K);
+        if (threadIdx.x == 0) {
+          s_i[cur ^ 1][0] = nim;
+          s_w[cur ^ 1][0] = nwm;
+          s_i[cur ^ 1][1] = ni1;
+          s_w[cur ^ 1][1] = nw1;
+        }
+        if (k + 2 < P.nsteps) {
+          nim = st_i[2 * k + 5];
+          nwm = st_w[2 * k + 5];
+          ni1 = st_i[2 * k + 6];
+          nw1 = st_w[2 * k + 6];
+        }
+      }
+      if (s.alive) {
+        const R rm = {rows, rows + K, s_dc, s_dcp, hat(s_i[cur][0], s_w[cur][0], j)};
+        const R r1 = {rows + 2 * K, rows + 3 * K, s_dc, s_dcp, hat(s_i[cur][1], s_w[cur][1], j)};
+        step_rows<false>(P, in, rm, r1, s_ba, k, s);
+      }
+      if (!__syncthreads_or(s.alive)) break;
     }
+    if (!act) return;
+  } else {
+    for (int k = 0; k < P.nsteps && s.alive; ++k) step_rows<false>(P, in, r0, r0, s_ba, k, s);
   }
 
-  const size_t o = ((size_t)j * gridDim.y + g) * P.B + b;
+  const size_t o = ((size_t)j * D + g) * P.B + b;
   dT_out[o] = s.T.t;
   dz_out[o] = s.z.t;
   dp_out[o] = s.p.t;
@@ -148,32 +242,65 @@ trace_coef_tangent_kernel(Params P, const float* __restrict__ p0v, const float* 
   }
 }
 
+template <bool RD, int KC>
+int launch(const Params& P, int D, int nr, cudaStream_t stream, const float* p0, const float* z0,
+           const float* ccoef, const float* cpcoef, const float* bacoef, const float* b0s,
+           const float* b1s, const unsigned char* xoob, const int* st_i, const float* st_w,
+           const float* dcoef, const float* dcpcoef, float* T, float* z, float* p, float* dT,
+           float* dz, float* dp, int* n_surf, int* n_bott, int* death) {
+  auto kern = trace_coef_tangent_kernel<RD, KC>;
+  const size_t dirs = 2 * (size_t)P.K * sizeof(float);
+  const size_t tabs = RD ? 2 * (size_t)nr * P.K * sizeof(float) : 0;
+  const size_t bufs = RD ? 8 * (size_t)P.K * sizeof(float) : 0;
+  const int tab_smem = RD && dirs + tabs + bufs <= TC_MAX_SMEM;
+  const size_t smem = dirs + bufs + (tab_smem ? tabs : 0);
+  if (smem > TC_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((P.B + TC_BLOCK - 1) / TC_BLOCK, D, RD ? nr : 1);
+  kern<<<grid, TC_BLOCK, smem, stream>>>(P, D, nr, tab_smem, p0, z0, ccoef, cpcoef, bacoef, b0s,
+                                         b1s, xoob, st_i, st_w, dcoef, dcpcoef, T, z, p, dT, dz,
+                                         dp, n_surf, n_bott, death);
+  return (int)cudaGetLastError();
+}
+
+// K fixed at compile time for the lengths the main paths use
+template <bool RD, class... A>
+int launch_k(int K, A... a) {
+  switch (K) {
+    case 16: return launch<RD, 16>(a...);
+    case 32: return launch<RD, 32>(a...);
+    case 64: return launch<RD, 64>(a...);
+    default: return launch<RD, 0>(a...);
+  }
+}
+
 }  // namespace
 
-// rd = 0: B5, tangents (D, B), nr = 1 and the per-step rows and station
-// rows unused (may be null); rd = 1: B6, tangents (nr, D, B)
+// rd = 0: B5, tangents (D, B), nr = 1, the station rows unused (may be
+// null); rd = 1: B6, ccoef/cpcoef the stations' (nr, K) tables, st_i/st_w
+// the station intervals of integrate._station_iw_rows, tangents (nr, D, B)
 extern "C" int trace_coef_tangent_f32(
     const float* p0, const float* z0, const float* ccoef, const float* cpcoef,
     const float* bacoef, const float* b0s, const float* b1s, const unsigned char* xoob,
-    const float* cms, const float* cpms, const float* c1s, const float* cp1s, const int* st_i,
-    const float* st_w, const float* dcoef, const float* dcpcoef, float* T, float* z, float* p,
-    float* dT, float* dz, float* dp, int* n_surf, int* n_bott, int* death, int B, int K, int Kb,
-    int nsteps, int D, int nr, int bangle_cheb, int term_back, int any_x_oob, int rd, float x0,
-    float h, float zlo_m, float zhi_p, float sc, float off, float sin_lim, float s2b, float c2b,
-    float b_sum, float b_span, void* stream) {
+    const int* st_i, const float* st_w, const float* dcoef, const float* dcpcoef, float* T,
+    float* z, float* p, float* dT, float* dz, float* dp, int* n_surf, int* n_bott, int* death,
+    int B, int K, int Kb, int nsteps, int D, int nr, int bangle_cheb, int term_back,
+    int any_x_oob, int rd, float x0, float h, float zlo_m, float zhi_p, float sc, float off,
+    float sin_lim, float s2b, float c2b, float b_sum, float b_span, void* stream) {
   if (B <= 0 || D <= 0 || D > 65535 || nr <= 0 || nr > 65535 || K < 1 || K > TS_MAX_K ||
       Kb < 1 || Kb > TS_MAX_KB || nsteps < 1)
     return (int)cudaErrorInvalidValue;
-  if (rd ? !(cms && cpms && c1s && cp1s && st_i && st_w) : nr != 1)
-    return (int)cudaErrorInvalidValue;
+  if (rd ? !(st_i && st_w && nr >= 2) : nr != 1) return (int)cudaErrorInvalidValue;
   const Params P = make_params(B, K, Kb, nsteps, nsteps, 1, bangle_cheb, term_back, any_x_oob,
                                x0, h, zlo_m, zhi_p, sc, off, sin_lim, s2b, c2b, b_sum, b_span);
-  const dim3 grid((B + TC_BLOCK - 1) / TC_BLOCK, D, nr);
 #define TC_ARGS \
-  P, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s, xoob, cms, cpms, c1s, cp1s, st_i, st_w, dcoef, \
-      dcpcoef, T, z, p, dT, dz, dp, n_surf, n_bott, death
-  if (rd) trace_coef_tangent_kernel<true><<<grid, TC_BLOCK, 0, (cudaStream_t)stream>>>(TC_ARGS);
-  else trace_coef_tangent_kernel<false><<<grid, TC_BLOCK, 0, (cudaStream_t)stream>>>(TC_ARGS);
+  K, P, D, nr, (cudaStream_t)stream, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s, xoob, st_i, st_w, \
+      dcoef, dcpcoef, T, z, p, dT, dz, dp, n_surf, n_bott, death
+  const int err = rd ? launch_k<true>(TC_ARGS) : launch_k<false>(TC_ARGS);
 #undef TC_ARGS
-  return (int)cudaGetLastError();
+  return err;
 }

@@ -32,12 +32,28 @@
 // no edge padding, no block-level any(cross) branch, no calm/dyn/hot
 // bodies (so death code 5 never occurs), no station DMA.  Each thread holds
 // its ray state in registers for all nseg*sps steps and runs the crossing
-// fix only when its own ray crosses a boundary.  The range-independent
-// coefficient rows (K <= 256) and the bottom-angle series (Kb <= 128) sit
-// in shared memory; every thread reads the same entry, so the reads are
-// broadcasts.  Range-dependent rows stay in global memory: every thread of
-// a block reads the same row at step k, so those reads are broadcasts too,
-// served from L1 (4 x K floats a step, against ~300 operations).
+// fix only when its own ray crosses a boundary.  A right-hand side
+// evaluates its two series (c and dc/dz) in one loop: each recurrence keeps
+// its own operations in their order, so the bits are those of two loops,
+// and the two dependent chains (a Clenshaw term is a multiply and two adds
+// after the last) overlap.  Spectral K = 16, 32 and 64, the lengths the main
+// paths use, are compiled with K fixed; other K run the same loop with K
+// read at run time.  The range-independent coefficient rows (K <= 256) and
+// the bottom-angle series (Kb <= 128) sit in shared memory; every thread
+// reads the same entry, so the reads are broadcasts.
+// Spectral, range-dependent (B1c): the wrapper hands the kernel the
+// stations' (nr, K) tables and the station interval (i, w) of the launch
+// range and of each step's middle and end (integrate._station_iw_rows),
+// not per-step rows.  The tables go to shared memory (to global memory,
+// read through L1, if 2 nr K floats would not fit beside the rows); the
+// block blends step k + 1's four rows (mid-step and step-end c and dc/dz,
+// (1 - w) t[i] + w t[i + 1]: integrate._blend_rows' expression, float for
+// float) into one half of a double buffer while it steps with step k's
+// rows from the other half, and the station intervals of step k + 2 are
+// loaded while step k runs.  One barrier a step; a dead ray, and a thread
+// past the last ray, stay in the loop (frozen) so that every barrier is
+// met.  So no coefficient load waits on global memory, and the wrapper
+// builds no per-step rows (some twenty torch operations a call).
 // Segment mode, range-independent: the two (K, S) tables go to dynamic
 // shared memory (2 K S floats: 32 KB at K = 32, 96 KB at the ladder's top
 // K = 96, so the launch raises the block's dynamic limit above 48 KB).
@@ -48,25 +64,25 @@
 // blend followed by its gather, the same float32 products and sum element
 // by element, so the kernel stays bit for bit equal to it without
 // materialising per-step (K, S) tables (16 MB each at the rough field's
-// 1,000 steps).  The alternative, a cooperative per-step blend into shared
-// memory, would put two barriers in every step of a loop whose rays stop
-// at different steps; blending at the pick costs two loads and three
-// operations more per term and needs no barrier.  The
-// per-step bathymetry b0s/b1s and the domain-exit flags xoob come from the
-// wrapper, computed exactly as the plain version computes them (the flags on
-// the host in float64: float32 range arithmetic must not decide deaths).
-// Saves go to (nseg+1, B) outputs, neighbouring threads on neighbouring
-// addresses; the wrapper transposes them to (B, nseg+1).
+// 1,000 steps).  The per-step bathymetry b0s/b1s and the domain-exit flags
+// xoob come from the wrapper, computed exactly as the plain version
+// computes them (the flags on the host in float64: float32 range
+// arithmetic must not decide deaths).  Saves go to (nseg+1, B) outputs,
+// neighbouring threads on neighbouring addresses; the wrapper transposes
+// them to (B, nseg+1).
 //
-// What bounds it on an H100: FP32 issue.  At the headline fan (102,400
-// rays, 490 steps, K = 16) a step costs four right-hand-side evaluations of
-// two K-term series each, about 300 float operations per ray, so about
-// 1.5e10 per launch.  The saves are 3 x 50 x 102,400 x 4 B ~ 61 MB and the
-// per-step inputs a few kB, so memory traffic is minor.  The design keeps
-// every operand in registers or shared memory to leave issue as the only
-// limit.  The range-dependent segment mode adds four scattered loads per
-// series term (two stations, c and dc/dz), served from L1 and L2: its
-// bound on the card is operations too, but its time is set by those loads.
+// What bounds it on an H100.  At the headline fan and config 1 (102,400
+// rays, 490 and 980 steps, K = 16) FP32 issue: a step costs four
+// right-hand-side evaluations of two K-term series each, about 300 float
+// operations per ray, so about 1.5e10 per launch; the saves are 3 x 50 x
+// 102,400 x 4 B ~ 61 MB and the per-step inputs a few kB, so memory
+// traffic is minor.  At the inversion's 2-save forward (128 rays, 300
+// steps, K = 32) one block holds every ray and the time is one thread's
+// dependent chain: four right-hand sides in a row a step, each 31 Clenshaw
+// terms of about 12 cycles with the two series overlapped (PERF.md).  The
+// range-dependent segment mode adds four scattered loads per series term
+// (two stations, c and dc/dz), served from L1 and L2: its bound on the card
+// is operations too, but its time is set by those loads.
 //
 // Rounding.  Built without --use_fast_math (Kahan needs IEEE add order;
 // 1/c, sqrt, sin and cos stay IEEE-accurate) and with -fmad=false, so every
@@ -89,6 +105,7 @@ namespace {
 
 struct Params {
   int B, K, Kb, nseg, sps;
+  int nr, tab_smem;     // range-dependent spectral: stations; tables in shared memory
   int bangle_cheb, term_back, kahan, any_x_oob;
   float x0, h;          // range origin and step [m]
   float zlo_m, zhi_p;   // depth domain widened by bbox_tol
@@ -159,10 +176,11 @@ __device__ __forceinline__ float coef(const float* t, const float* t2, float w, 
   return t[j];
 }
 
-template <bool POW, bool RD, int SEG>
+// one series at q (K = KC when KC > 0, else P.K)
+template <bool POW, bool RD, int SEG, int KC>
 __device__ __forceinline__ float series(const float* t, const float* t2, float w, float omw,
                                         const Params& P, Coord q) {
-  const int K = P.K;
+  const int K = KC > 0 ? KC : P.K;
   if (SEG == 0 ? POW : SEG == 1) {  // Horner
     float acc = 0.0f + coef<RD, SEG>(t, t2, w, omw, P, q.s, K - 1);
     for (int k = K - 2; k >= 0; --k) acc = acc * q.u + coef<RD, SEG>(t, t2, w, omw, P, q.s, k);
@@ -177,20 +195,50 @@ __device__ __forceinline__ float series(const float* t, const float* t2, float w
   return coef<RD, SEG>(t, t2, w, omw, P, q.s, 0) + q.u * b1 - b2;
 }
 
-template <bool POW, bool RD, int SEG>
+// the c and dc/dz series at q in one loop: each recurrence keeps its own
+// operations in their order (the bits of two separate loops), and the two
+// independent chains overlap
+template <bool POW, bool RD, int SEG, int KC>
+__device__ __forceinline__ void series2(const Prof& pr, const Params& P, Coord q, float& c,
+                                        float& cp) {
+  const int K = KC > 0 ? KC : P.K;
+  if (SEG == 0 ? POW : SEG == 1) {  // Horner
+    float a = 0.0f + coef<RD, SEG>(pr.c, pr.c2, pr.w, pr.omw, P, q.s, K - 1);
+    float d = 0.0f + coef<RD, SEG>(pr.cp, pr.cp2, pr.w, pr.omw, P, q.s, K - 1);
+    for (int k = K - 2; k >= 0; --k) {
+      a = a * q.u + coef<RD, SEG>(pr.c, pr.c2, pr.w, pr.omw, P, q.s, k);
+      d = d * q.u + coef<RD, SEG>(pr.cp, pr.cp2, pr.w, pr.omw, P, q.s, k);
+    }
+    c = a;
+    cp = d;
+    return;
+  }
+  float b1 = 0.0f, b2 = 0.0f, e1 = 0.0f, e2 = 0.0f;  // Clenshaw
+  for (int k = K - 1; k >= 1; --k) {
+    const float tk = coef<RD, SEG>(pr.c, pr.c2, pr.w, pr.omw, P, q.s, k) + 2.0f * q.u * b1 - b2;
+    b2 = b1;
+    b1 = tk;
+    const float sk = coef<RD, SEG>(pr.cp, pr.cp2, pr.w, pr.omw, P, q.s, k) + 2.0f * q.u * e1 - e2;
+    e2 = e1;
+    e1 = sk;
+  }
+  c = coef<RD, SEG>(pr.c, pr.c2, pr.w, pr.omw, P, q.s, 0) + q.u * b1 - b2;
+  cp = coef<RD, SEG>(pr.cp, pr.cp2, pr.w, pr.omw, P, q.s, 0) + q.u * e1 - e2;
+}
+
+template <bool POW, bool RD, int SEG, int KC>
 __device__ __forceinline__ float ev_c(const Prof& pr, const Params& P, float z) {
-  return series<POW, RD, SEG>(pr.c, pr.c2, pr.w, pr.omw, P, coord<SEG>(P, z));
+  return series<POW, RD, SEG, KC>(pr.c, pr.c2, pr.w, pr.omw, P, coord<SEG>(P, z));
 }
 
 struct Deriv {
   float kT, kz, kp, c;
 };
 
-template <bool POW, bool RD, int SEG>
+template <bool POW, bool RD, int SEG, int KC>
 __device__ __forceinline__ Deriv rhs(const Prof& pr, const Params& P, float z, float p) {
-  const Coord q = coord<SEG>(P, z);
-  const float c = series<POW, RD, SEG>(pr.c, pr.c2, pr.w, pr.omw, P, q);
-  const float cp = series<POW, RD, SEG>(pr.cp, pr.cp2, pr.w, pr.omw, P, q);
+  float c, cp;
+  series2<POW, RD, SEG, KC>(pr, P, coord<SEG>(P, z), c, cp);
   const float cp2 = c * p;
   const float inv_s = rsqrtf(maxf(1.0f - cp2 * cp2, TF_TINY));
   const float invc = 1.0f / c;
@@ -217,26 +265,77 @@ __device__ __forceinline__ void kahan_add(float& val, float& comp, float delta) 
   val = t;
 }
 
-template <bool POW, bool RD, int SEG>
+// rows of one step, made by the block from the station tables: mid-step c
+// and dc/dz at the interval (im, wm), step-end c and dc/dz at (i1, w1),
+// each (1 - w) t[i] + w t[i + 1] (integrate._blend_rows' expression), into
+// buf[0 .. 4K)
+__device__ __forceinline__ void blend_step(const float* ctab, const float* cptab, int K, int im,
+                                           float wm, int i1, float w1, float* buf) {
+  for (int q = threadIdx.x; q < 4 * K; q += blockDim.x) {
+    const int r = q / K;
+    const int k = q - r * K;
+    const float* t = (r & 1) ? cptab : ctab;
+    const int i = r < 2 ? im : i1;
+    const float w = r < 2 ? wm : w1;
+    buf[q] = (1.0f - w) * t[i * K + k] + w * t[(i + 1) * K + k];
+  }
+}
+
+template <bool POW, bool RD, int SEG, int KC>
 __global__ void __launch_bounds__(TF_BLOCK)
 trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restrict__ z0v,
                  const float* __restrict__ ccoef, const float* __restrict__ cpcoef,
                  const float* __restrict__ bacoef, const float* __restrict__ b0s,
                  const float* __restrict__ b1s, const unsigned char* __restrict__ xoob,
-                 const float* __restrict__ cms, const float* __restrict__ cpms,
-                 const float* __restrict__ c1s, const float* __restrict__ cp1s,
                  const int* __restrict__ st_i, const float* __restrict__ st_w,
                  float* __restrict__ ts, float* __restrict__ zs, float* __restrict__ ps,
                  int* __restrict__ n_surf_out, int* __restrict__ n_bott_out,
                  int* __restrict__ death_out, int* __restrict__ dseg_out) {
+  // spectral, range-dependent: the stations' rows are blended here, step by
+  // step, by the whole block (the threads stay in the loop together)
+  constexpr bool SR = RD && SEG == 0;
   // spectral: the initial right-hand side's rows (every step's,
-  // range-independent); segment, range-independent: the (K, S) tables
+  // range-independent)
   __shared__ float s_c[TF_MAX_K];
   __shared__ float s_cp[TF_MAX_K];
   __shared__ float s_ba[TF_MAX_KB];
-  extern __shared__ float s_tab[];  // segment, range-independent: 2 K S floats
+  // segment, range-independent: the (K, S) tables, 2 K S floats; spectral,
+  // range-dependent: the (nr, K) station tables when they fit, then a
+  // double buffer of step rows (2, 4K)
+  extern __shared__ float s_tab[];
+  const int K = KC > 0 ? KC : P.K;
   const int KS = P.K * P.S;
-  if (SEG == 0) {
+  const float* ctab = ccoef;
+  const float* cptab = cpcoef;
+  float* s_buf = s_tab;
+  int nim = 0, ni1 = 0;  // SR: the station intervals of the next step to blend
+  float nwm = 0.0f, nw1 = 0.0f;
+  if (SR) {
+    if (P.tab_smem) {
+      for (int q = threadIdx.x; q < P.nr * K; q += blockDim.x) {
+        s_tab[q] = ccoef[q];
+        s_tab[P.nr * K + q] = cpcoef[q];
+      }
+      __syncthreads();
+      ctab = s_tab;
+      cptab = s_tab + P.nr * K;
+      s_buf = s_tab + 2 * P.nr * K;
+    }
+    // the launch range's rows, and step 0's
+    const int i0 = st_i[0];
+    const float w0 = st_w[0];
+    for (int k = threadIdx.x; k < K; k += blockDim.x) {
+      s_c[k] = (1.0f - w0) * ctab[i0 * K + k] + w0 * ctab[(i0 + 1) * K + k];
+      s_cp[k] = (1.0f - w0) * cptab[i0 * K + k] + w0 * cptab[(i0 + 1) * K + k];
+    }
+    blend_step(ctab, cptab, K, st_i[1], st_w[1], st_i[2], st_w[2], s_buf);
+    if (P.nseg * P.sps > 1) {
+      nim = st_i[3];
+      nwm = st_w[3];
+      ni1 = st_i[4];
+      nw1 = st_w[4];
+    }
+  } else if (SEG == 0) {
     for (int k = threadIdx.x; k < P.K; k += blockDim.x) {
       s_c[k] = ccoef[k];
       s_cp[k] = cpcoef[k];
@@ -251,15 +350,17 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.B) return;
+  if (!SR && i >= P.B) return;
+  const bool act = i < P.B;  // SR: a masked thread still blends and meets the barriers
   const int B = P.B;
+  const int nsteps = P.nseg * P.sps;
   const float hs = P.h;
   const float h6 = hs / 6.0f;
 
-  // the profile of a stage: spectral rows (row k of the per-step tables,
-  // range-dependent), or segment tables (the two stations of interval
-  // st_i[j] with weight st_w[j], range-dependent; j = 0 at the launch
-  // range, 2k + 1 and 2k + 2 at step k's middle and end)
+  // the profile of a stage: spectral rows (range-dependent: this step's
+  // half of the double buffer), or segment tables (the two stations of
+  // interval st_i[j] with weight st_w[j], range-dependent; j = 0 at the
+  // launch range, 2k + 1 and 2k + 2 at step k's middle and end)
   auto seg_prof = [&](int j) -> Prof {
     if (!RD) return {s_tab, s_tab + KS, nullptr, nullptr, 0.0f, 1.0f};
     const size_t st = (size_t)st_i[j] * KS;
@@ -269,20 +370,32 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
   const Prof prof0 = SEG ? seg_prof(0) : Prof{s_c, s_cp, nullptr, nullptr, 0.0f, 1.0f};
 
   // ---- initial state ----
-  const float z0 = z0v[i];
-  const float p0 = p0v[i];
+  const float z0 = act ? z0v[i] : 0.0f;
+  const float p0 = act ? p0v[i] : 0.0f;
   float T = 0.0f, Tc = 0.0f, z = z0, zc = 0.0f, p = p0;
-  Deriv k1 = rhs<POW, RD, SEG>(prof0, P, z0, p0);
-  bool alive = (z0 >= P.zlo_m) && (z0 <= P.zhi_p);
+  Deriv k1 = rhs<POW, RD, SEG, KC>(prof0, P, z0, p0);
+  bool alive = act && (z0 >= P.zlo_m) && (z0 <= P.zhi_p);
   int death = alive ? 0 : 2;
   int n_surf = 0, n_bott = 0;
   int dseg = alive ? P.nseg + 1 : 0;  // first save index at which the ray is dead
-  ts[i] = T;
-  zs[i] = z;
-  ps[i] = p;
+  if (act) {
+    ts[i] = T;
+    zs[i] = z;
+    ps[i] = p;
+  }
 
   for (int seg = 0; seg < P.nseg; ++seg) {
     for (int k = seg * P.sps; k < (seg + 1) * P.sps; ++k) {
+      const float* rows = s_buf + (k & 1) * 4 * K;  // SR: step k's rows
+      if (SR && k + 1 < nsteps) {  // step k + 1's rows into the other half
+        blend_step(ctab, cptab, K, nim, nwm, ni1, nw1, s_buf + ((k + 1) & 1) * 4 * K);
+        if (k + 2 < nsteps) {
+          nim = st_i[2 * k + 5];
+          nwm = st_w[2 * k + 5];
+          ni1 = st_i[2 * k + 6];
+          nw1 = st_w[2 * k + 6];
+        }
+      }
       if (!alive) {
         // a frozen ray still takes the compensated update with a zero
         // increment, exactly as the where()-masked plain version does
@@ -290,151 +403,170 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
           kahan_add(T, Tc, 0.0f);
           kahan_add(z, zc, 0.0f);
         }
-        continue;
-      }
-      Prof pm, p1r;  // mid-step and end-of-step profiles
-      if (SEG) {
-        pm = seg_prof(2 * k + 1);
-        p1r = seg_prof(2 * k + 2);
       } else {
-        const size_t row = RD ? (size_t)k * P.K : 0;
-        pm = {RD ? cms + row : s_c, RD ? cpms + row : s_cp, nullptr, nullptr, 0.0f, 1.0f};
-        p1r = {RD ? c1s + row : s_c, RD ? cp1s + row : s_cp, nullptr, nullptr, 0.0f, 1.0f};
-      }
-      // ---- RK4 (k1 carried from the previous step's end derivative) ----
-      const Deriv k2 = rhs<POW, RD, SEG>(pm, P, z + 0.5f * hs * k1.kz, p + 0.5f * hs * k1.kp);
-      const Deriv k3 = rhs<POW, RD, SEG>(pm, P, z + 0.5f * hs * k2.kz, p + 0.5f * hs * k2.kp);
-      const Deriv k4 = rhs<POW, RD, SEG>(p1r, P, z + hs * k3.kz, p + hs * k3.kp);
-      const float dT = h6 * (k1.kT + 2.0f * k2.kT + 2.0f * k3.kT + k4.kT);
-      const float dz = h6 * (k1.kz + 2.0f * k2.kz + 2.0f * k3.kz + k4.kz);
-      const float dp = h6 * (k1.kp + 2.0f * k2.kp + 2.0f * k3.kp + k4.kp);
-      const float z1 = z + dz;
-      const float p1 = p + dp;
-
-      // ---- boundary crossing ----
-      const float b0 = b0s[k];
-      const float b1 = b1s[k];
-      const bool surf = (z1 < 0.0f) && (z >= 0.0f);
-      const bool bott = (z1 > b1) && (z <= b0);
-      float dT_tot = dT, dz_tot = dz, p_new = p1;
-      bool back_dead = false;
-      if (surf || bott) {
-        // localize the crossing inside the step (cubic Hermite in s)
-        const float bnd0 = surf ? 0.0f : b0;
-        const float bnd1 = surf ? 0.0f : b1;
-        const float db = bnd1 - bnd0;
-        const float mz0 = hs * k1.kz;
-        const float mz1 = hs * k4.kz;
-        const float g0 = z - bnd0;
-        const float g1 = z1 - bnd1;
-        float f = clampf(g0 / (fabsf(g0 - g1) > TF_TINY ? g0 - g1 : 1.0f), 0.0f, 1.0f);
-        for (int it = 0; it < 2; ++it) {
-          const float G = hermite(f, z, z1, mz0, mz1) - (bnd0 + f * db);
-          const float Gp = hermite_d(f, z, z1, mz0, mz1) - db;
-          f = clampf(f - G / (fabsf(Gp) > TF_TINY ? Gp : 1.0f), 0.0f, 1.0f);
+        Prof pm, p1r;  // mid-step and end-of-step profiles
+        if (SEG) {
+          pm = seg_prof(2 * k + 1);
+          p1r = seg_prof(2 * k + 2);
+        } else {
+          pm = {RD ? rows : s_c, RD ? rows + K : s_cp, nullptr, nullptr, 0.0f, 1.0f};
+          p1r = {RD ? rows + 2 * K : s_c, RD ? rows + 3 * K : s_cp, nullptr, nullptr, 0.0f, 1.0f};
         }
-        // state at the crossing
-        const float t_off = hermite(f, 0.0f, dT, hs * k1.kT, hs * k4.kT);
-        const float z_c = hermite(f, z, z1, mz0, mz1);
-        const float p_c = hermite(f, p, p1, hs * k1.kp, hs * k4.kp);
-        // reflect (sin θ' = sin 2β cos θ - cos 2β sin θ, sin θ = c p)
-        const float c_c = ev_c<POW, RD, SEG>(pm, P, z_c);
-        const float sin_th = clampf(p_c * c_c, -1.0f, 1.0f);
-        const float cos_th = sqrtf(maxf(1.0f - sin_th * sin_th, 0.0f));
-        float s2b = P.s2b, c2b = P.c2b;
-        if (P.bangle_cheb) {
-          // crossing range in float32, rounded op by op like the plain version
-          const float x0k = __fadd_rn(P.x0, __fmul_rn((float)k, hs));
-          const float x_c = __fadd_rn(x0k, __fmul_rn(f, hs));
-          const float ub = clampf((2.0f * x_c - P.b_sum) / P.b_span, -1.0f, 1.0f);
-          const float b2 = 2.0f * (clenshaw(s_ba, P.Kb, ub) * TF_DEG2RAD);
-          s2b = sinf(b2);
-          c2b = cosf(b2);
-        }
-        const float p_ref = surf ? -p_c : (s2b * cos_th - c2b * sin_th) / c_c;
-        back_dead = P.term_back && bott && (c2b * cos_th + s2b * sin_th < -1e-9f);
-        // re-integrate the remainder of the step from the crossing (Heun)
-        const float hr = (1.0f - f) * hs;
-        const Deriv r1 = rhs<POW, RD, SEG>(pm, P, z_c, p_ref);
-        const Deriv r2 = rhs<POW, RD, SEG>(p1r, P, z_c + hr * r1.kz, p_ref + hr * r1.kp);
-        if (!back_dead) {
-          dT_tot = t_off + hr * 0.5f * (r1.kT + r2.kT);
-          dz_tot = (z_c + hr * 0.5f * (r1.kz + r2.kz)) - z;
-          p_new = p_ref + hr * 0.5f * (r1.kp + r2.kp);
-        }
-        n_surf += surf;
-        n_bott += bott;
-      }
+        // ---- RK4 (k1 carried from the previous step's end derivative) ----
+        const Deriv k2 = rhs<POW, RD, SEG, KC>(pm, P, z + 0.5f * hs * k1.kz, p + 0.5f * hs * k1.kp);
+        const Deriv k3 = rhs<POW, RD, SEG, KC>(pm, P, z + 0.5f * hs * k2.kz, p + 0.5f * hs * k2.kp);
+        const Deriv k4 = rhs<POW, RD, SEG, KC>(p1r, P, z + hs * k3.kz, p + hs * k3.kp);
+        const float dT = h6 * (k1.kT + 2.0f * k2.kT + 2.0f * k3.kT + k4.kT);
+        const float dz = h6 * (k1.kz + 2.0f * k2.kz + 2.0f * k3.kz + k4.kz);
+        const float dp = h6 * (k1.kp + 2.0f * k2.kp + 2.0f * k3.kp + k4.kp);
+        const float z1 = z + dz;
+        const float p1 = p + dp;
 
-      // ---- accumulate ----
-      if (P.kahan) {
-        kahan_add(T, Tc, dT_tot);
-        kahan_add(z, zc, dz_tot);
-      } else {
-        T = T + dT_tot;
-        z = z + dz_tot;
-      }
-      p = p_new;
+        // ---- boundary crossing ----
+        const float b0 = b0s[k];
+        const float b1 = b1s[k];
+        const bool surf = (z1 < 0.0f) && (z >= 0.0f);
+        const bool bott = (z1 > b1) && (z <= b0);
+        float dT_tot = dT, dz_tot = dz, p_new = p1;
+        bool back_dead = false;
+        if (surf || bott) {
+          // localize the crossing inside the step (cubic Hermite in s)
+          const float bnd0 = surf ? 0.0f : b0;
+          const float bnd1 = surf ? 0.0f : b1;
+          const float db = bnd1 - bnd0;
+          const float mz0 = hs * k1.kz;
+          const float mz1 = hs * k4.kz;
+          const float g0 = z - bnd0;
+          const float g1 = z1 - bnd1;
+          float f = clampf(g0 / (fabsf(g0 - g1) > TF_TINY ? g0 - g1 : 1.0f), 0.0f, 1.0f);
+          for (int it = 0; it < 2; ++it) {
+            const float G = hermite(f, z, z1, mz0, mz1) - (bnd0 + f * db);
+            const float Gp = hermite_d(f, z, z1, mz0, mz1) - db;
+            f = clampf(f - G / (fabsf(Gp) > TF_TINY ? Gp : 1.0f), 0.0f, 1.0f);
+          }
+          // state at the crossing
+          const float t_off = hermite(f, 0.0f, dT, hs * k1.kT, hs * k4.kT);
+          const float z_c = hermite(f, z, z1, mz0, mz1);
+          const float p_c = hermite(f, p, p1, hs * k1.kp, hs * k4.kp);
+          // reflect (sin θ' = sin 2β cos θ - cos 2β sin θ, sin θ = c p)
+          const float c_c = ev_c<POW, RD, SEG, KC>(pm, P, z_c);
+          const float sin_th = clampf(p_c * c_c, -1.0f, 1.0f);
+          const float cos_th = sqrtf(maxf(1.0f - sin_th * sin_th, 0.0f));
+          float s2b = P.s2b, c2b = P.c2b;
+          if (P.bangle_cheb) {
+            // crossing range in float32, rounded op by op like the plain version
+            const float x0k = __fadd_rn(P.x0, __fmul_rn((float)k, hs));
+            const float x_c = __fadd_rn(x0k, __fmul_rn(f, hs));
+            const float ub = clampf((2.0f * x_c - P.b_sum) / P.b_span, -1.0f, 1.0f);
+            const float b2 = 2.0f * (clenshaw(s_ba, P.Kb, ub) * TF_DEG2RAD);
+            s2b = sinf(b2);
+            c2b = cosf(b2);
+          }
+          const float p_ref = surf ? -p_c : (s2b * cos_th - c2b * sin_th) / c_c;
+          back_dead = P.term_back && bott && (c2b * cos_th + s2b * sin_th < -1e-9f);
+          // re-integrate the remainder of the step from the crossing (Heun)
+          const float hr = (1.0f - f) * hs;
+          const Deriv r1 = rhs<POW, RD, SEG, KC>(pm, P, z_c, p_ref);
+          const Deriv r2 = rhs<POW, RD, SEG, KC>(p1r, P, z_c + hr * r1.kz, p_ref + hr * r1.kp);
+          if (!back_dead) {
+            dT_tot = t_off + hr * 0.5f * (r1.kT + r2.kT);
+            dz_tot = (z_c + hr * 0.5f * (r1.kz + r2.kz)) - z;
+            p_new = p_ref + hr * 0.5f * (r1.kp + r2.kp);
+          }
+          n_surf += surf;
+          n_bott += bott;
+        }
 
-      // ---- end-of-step derivative (next step's k1) + death checks ----
-      k1 = rhs<POW, RD, SEG>(p1r, P, z, p);
-      const bool vert = fabsf(k1.c * p) > P.sin_lim;
-      const bool oob = (z > P.zhi_p) || (z < P.zlo_m) || (P.any_x_oob && xoob[k]);
-      death = back_dead ? 3 : (vert ? 1 : (oob ? 2 : death));
-      alive = !(vert || oob || back_dead);
+        // ---- accumulate ----
+        if (P.kahan) {
+          kahan_add(T, Tc, dT_tot);
+          kahan_add(z, zc, dz_tot);
+        } else {
+          T = T + dT_tot;
+          z = z + dz_tot;
+        }
+        p = p_new;
+
+        // ---- end-of-step derivative (next step's k1) + death checks ----
+        k1 = rhs<POW, RD, SEG, KC>(p1r, P, z, p);
+        const bool vert = fabsf(k1.c * p) > P.sin_lim;
+        const bool oob = (z > P.zhi_p) || (z < P.zlo_m) || (P.any_x_oob && xoob[k]);
+        death = back_dead ? 3 : (vert ? 1 : (oob ? 2 : death));
+        alive = !(vert || oob || back_dead);
+      }
+      if (SR) __syncthreads();  // step k's rows read, step k + 1's written
     }
-    // compensated readout: comp holds the overshoot, so val - comp
-    const size_t row = (size_t)(seg + 1) * B + i;
-    ts[row] = T - Tc;
-    zs[row] = z - zc;
-    ps[row] = p;
+    if (act) {
+      // compensated readout: comp holds the overshoot, so val - comp
+      const size_t row = (size_t)(seg + 1) * B + i;
+      ts[row] = T - Tc;
+      zs[row] = z - zc;
+      ps[row] = p;
+    }
     if (!alive && dseg > seg + 1) dseg = seg + 1;
   }
+  if (!act) return;
   n_surf_out[i] = n_surf;
   n_bott_out[i] = n_bott;
   death_out[i] = death;
   dseg_out[i] = dseg;
 }
 
-template <bool POW, bool RD, int SEG>
-int launch(const Params& P, cudaStream_t s, const float* p0, const float* z0, const float* ccoef,
-           const float* cpcoef, const float* bacoef, const float* b0s, const float* b1s,
-           const unsigned char* xoob, const float* cms, const float* cpms, const float* c1s,
-           const float* cp1s, const int* st_i, const float* st_w, float* ts, float* zs, float* ps,
-           int* n_surf, int* n_bott, int* death, int* dseg) {
+template <bool POW, bool RD, int SEG, int KC>
+int launch(const Params& P, cudaStream_t s, const float* p0, const float* z0,
+           const float* ccoef, const float* cpcoef, const float* bacoef, const float* b0s,
+           const float* b1s, const unsigned char* xoob, const int* st_i, const float* st_w,
+           float* ts, float* zs, float* ps, int* n_surf, int* n_bott, int* death, int* dseg) {
+  auto kern = trace_fan_kernel<POW, RD, SEG, KC>;
   const dim3 grid((P.B + TF_BLOCK - 1) / TF_BLOCK);
   // segment mode, range-independent: both (K, S) tables in dynamic shared
-  // memory; above 48 KB a block may take it only once the limit is raised
-  const size_t smem = (SEG && !RD) ? 2 * (size_t)P.K * P.S * sizeof(float) : 0;
+  // memory; spectral, range-dependent: the station tables (when they fit)
+  // and the step rows' double buffer; above 48 KB a block may take it only
+  // once the limit is raised
+  size_t smem = 0;
+  if (SEG && !RD) smem = 2 * (size_t)P.K * P.S * sizeof(float);
+  if (!SEG && RD) smem = (8 + (P.tab_smem ? 2 * (size_t)P.nr : 0)) * P.K * sizeof(float);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        trace_fan_kernel<POW, RD, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  trace_fan_kernel<POW, RD, SEG><<<grid, TF_BLOCK, smem, s>>>(
-      P, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s, xoob, cms, cpms, c1s, cp1s, st_i, st_w, ts, zs,
-      ps, n_surf, n_bott, death, dseg);
+  kern<<<grid, TF_BLOCK, smem, s>>>(P, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s, xoob, st_i,
+                                    st_w, ts, zs, ps, n_surf, n_bott, death, dseg);
   return (int)cudaGetLastError();
+}
+
+// spectral: K fixed at compile time for the lengths the main paths use
+template <bool POW, bool RD, class... A>
+int launch_k(int K, A... a) {
+  switch (K) {
+    case 16: return launch<POW, RD, 0, 16>(a...);
+    case 32: return launch<POW, RD, 0, 32>(a...);
+    case 64: return launch<POW, RD, 0, 64>(a...);
+    default: return launch<POW, RD, 0, 0>(a...);
+  }
 }
 
 }  // namespace
 
+// rd: ccoef/cpcoef are the stations' tables, (nr, K) spectral or (nr, K,
+// S) segment, and st_i/st_w the station intervals of
+// integrate._station_iw_rows
 extern "C" int trace_fan_f32(const float* p0, const float* z0, const float* ccoef,
                              const float* cpcoef, const float* bacoef, const float* b0s,
-                             const float* b1s, const unsigned char* xoob, const float* cms,
-                             const float* cpms, const float* c1s, const float* cp1s,
-                             const int* st_i, const float* st_w, float* ts, float* zs, float* ps,
-                             int* n_surf, int* n_bott, int* death, int* dseg, int B, int K,
-                             int Kb, int nseg, int sps, int use_pow, int bangle_cheb,
-                             int term_back, int kahan, int seg, int S, float seg_zlo,
-                             float seg_hinv, int any_x_oob, int rd, float x0, float h,
-                             float zlo_m, float zhi_p, float sc, float off, float sin_lim,
-                             float s2b, float c2b, float b_sum, float b_span, void* stream) {
-  if (B <= 0 || K < 1 || Kb < 1 || Kb > TF_MAX_KB || nseg < 1 || sps < 1 || seg < 0 || seg > 2)
+                             const float* b1s, const unsigned char* xoob, const int* st_i,
+                             const float* st_w, float* ts, float* zs, float* ps, int* n_surf,
+                             int* n_bott, int* death, int* dseg, int B, int K, int Kb, int nseg,
+                             int sps, int use_pow, int bangle_cheb, int term_back, int kahan,
+                             int seg, int S, int nr, float seg_zlo, float seg_hinv,
+                             int any_x_oob, int rd, float x0, float h, float zlo_m, float zhi_p,
+                             float sc, float off, float sin_lim, float s2b, float c2b,
+                             float b_sum, float b_span, void* stream) {
+  if (B <= 0 || K < 1 || Kb < 1 || Kb > TF_MAX_KB || nseg < 1 || sps < 1 || seg < 0 || seg > 2 ||
+      (rd && !(st_i && st_w && nr >= 2)))
     return (int)cudaErrorInvalidValue;
-  if (seg == 0 && (K > TF_MAX_K || (rd && !(cms && cpms && c1s && cp1s))))
-    return (int)cudaErrorInvalidValue;
-  if (seg != 0 && (S < 1 || (rd && !(st_i && st_w)) || (!rd && 2 * (size_t)K * S * sizeof(float) > TF_MAX_SEG_SMEM)))
+  if (seg == 0 && K > TF_MAX_K) return (int)cudaErrorInvalidValue;
+  if (seg != 0 && (S < 1 || (!rd && 2 * (size_t)K * S * sizeof(float) > TF_MAX_SEG_SMEM)))
     return (int)cudaErrorInvalidValue;
   Params P;
   P.B = B;
@@ -442,6 +574,9 @@ extern "C" int trace_fan_f32(const float* p0, const float* z0, const float* ccoe
   P.Kb = Kb;
   P.nseg = nseg;
   P.sps = sps;
+  P.nr = rd ? nr : 1;
+  // station tables in shared memory beside the step rows when they fit
+  P.tab_smem = (2 * (size_t)P.nr + 8) * K * sizeof(float) <= TF_MAX_SEG_SMEM;
   P.bangle_cheb = bangle_cheb;
   P.term_back = term_back;
   P.kahan = kahan;
@@ -463,11 +598,11 @@ extern "C" int trace_fan_f32(const float* p0, const float* z0, const float* ccoe
   P.seg_Sf = (float)P.S;
   cudaStream_t s = (cudaStream_t)stream;
 #define TF_ARGS \
-  P, s, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s, xoob, cms, cpms, c1s, cp1s, st_i, st_w, ts, zs, \
-      ps, n_surf, n_bott, death, dseg
-  if (seg == 1) return rd ? launch<false, true, 1>(TF_ARGS) : launch<false, false, 1>(TF_ARGS);
-  if (seg == 2) return rd ? launch<false, true, 2>(TF_ARGS) : launch<false, false, 2>(TF_ARGS);
-  if (use_pow) return rd ? launch<true, true, 0>(TF_ARGS) : launch<true, false, 0>(TF_ARGS);
-  return rd ? launch<false, true, 0>(TF_ARGS) : launch<false, false, 0>(TF_ARGS);
+  P, s, p0, z0, ccoef, cpcoef, bacoef, b0s, b1s, xoob, st_i, st_w, ts, zs, ps, n_surf, \
+      n_bott, death, dseg
+  if (seg == 1) return rd ? launch<false, true, 1, 0>(TF_ARGS) : launch<false, false, 1, 0>(TF_ARGS);
+  if (seg == 2) return rd ? launch<false, true, 2, 0>(TF_ARGS) : launch<false, false, 2, 0>(TF_ARGS);
+  if (use_pow) return rd ? launch_k<true, true>(K, TF_ARGS) : launch_k<true, false>(K, TF_ARGS);
+  return rd ? launch_k<false, true>(K, TF_ARGS) : launch_k<false, false>(K, TF_ARGS);
 #undef TF_ARGS
 }

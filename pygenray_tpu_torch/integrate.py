@@ -73,6 +73,14 @@ class SolverSettings:
     configuration, else runs the torch-op loop; "ops" always runs the
     torch-op loop; "kernel" runs the kernel's wrapper and raises when the
     kernel does not cover the configuration.
+
+    ``max_bounces``, ``calm``, ``dyn_calm`` and ``hot`` are the JAX
+    package's fields, taken at any value so that its callers run here, and
+    ignored: ``max_bounces`` is reserved there too, and the other three
+    steer its TPU kernel's calm, dynamic-calm and hot block bodies, which
+    the port does not have.  The CUDA kernels run as the reference does
+    with those bodies off, so death code 5 (a failed calm audit) never
+    occurs.
     """
 
     dx: float = 50.0
@@ -80,9 +88,13 @@ class SolverSettings:
     terminate_backwards: bool = True
     vertical_limit_deg: float = 90.0 - 1e-3
     bbox_tol: float = 1e-6
+    max_bounces: int = -1  # unlimited; reserved, as in the JAX package
     # compensated (Kahan) accumulation of T and z: essential in float32
     kahan: bool = True
     backend: str = "auto"  # auto | ops | kernel
+    calm: bool = True  # ignored (the JAX package's TPU block classifiers)
+    dyn_calm: bool = True  # ignored
+    hot: str = "off"  # ignored
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,15 +234,18 @@ def _station_iw_rows(env: EnvData, geom):
     """``(st_i, st_w)``: the station interval index (int32) and weight of
     ``_station_iw`` at the launch range, then at step k's middle (entry
     2k + 1) and end (2k + 2), each (2 nsteps + 1,).  The kernels that blend
-    stations themselves read these rows: the segment-mode fan kernel (at
-    each coefficient pick) and the range-dependent coefficient-tangent
-    kernel (its hat weights)."""
+    stations themselves read these rows: the fan kernel (spectral: each
+    step's rows, in the block; segment mode: at each coefficient pick) and
+    the range-dependent coefficient-tangent kernel (each step's rows and
+    its hat weights)."""
     _, xsm, xs1 = _step_ranges(env, geom)
-    i0, w0 = _station_iw(env, torch.tensor(geom[0], dtype=env.dtype, device=env.device))
-    im, wm = _station_iw(env, xsm)
-    i1, w1 = _station_iw(env, xs1)
-    flat = lambda a0, am, a1: torch.cat([a0.reshape(1), torch.stack([am, a1], 1).reshape(-1)])
-    return flat(i0, im, i1).to(torch.int32).contiguous(), flat(w0, wm, w1).contiguous()
+    # one evaluation over the ranges in row order (elementwise, so each
+    # entry is what an evaluation at that range alone gives); the launch
+    # range as a (1,) tensor: a 0-d index tensor is read back to the host,
+    # which waits for the card
+    x0 = torch.full((1,), geom[0], dtype=env.dtype, device=env.device)
+    i, w = _station_iw(env, torch.cat([x0, torch.stack([xsm, xs1], 1).reshape(-1)]))
+    return i.to(torch.int32), w
 
 
 def _blend_rows(env: EnvData, ctab, cptab, x):
@@ -322,7 +337,7 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     Python number: on a CUDA device torch turns ``t / 6.0`` into
     ``t * (1/6.0)``, which rounds differently from the IEEE division the
     CPU (and the CUDA kernel) performs."""
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 def _save_ranges(x0: float, x1: float, nseg: int, like: torch.Tensor) -> torch.Tensor:
@@ -343,6 +358,9 @@ def _plan(x0: float, x1: float, num_save: int, dx: float):
 def _as_batch(env: EnvData, z0, p0):
     """(B,) launch tensors on the environment's device and dtype."""
     p0 = torch.as_tensor(p0, dtype=env.dtype, device=env.device).reshape(-1)
+    if isinstance(z0, (int, float)):
+        # a fill: the copy of a host scalar to a card waits for the card
+        return torch.full(p0.shape, z0, dtype=env.dtype, device=env.device), p0
     z0 = torch.as_tensor(z0, dtype=env.dtype, device=env.device).expand(p0.shape)
     return z0, p0
 
@@ -370,6 +388,16 @@ def _step_ranges(env: EnvData, geom):
     return xs0, xs0 + 0.5 * h, x0 + (ks + 1.0) * h
 
 
+def _step_bathy(env: EnvData, geom):
+    """``(b0s, b1s)``: the bathymetry at each step's start and end, from one
+    interpolation at the nsteps + 1 step boundaries (step k's end, x0 +
+    (k + 1) h, is step k + 1's start float for float: k + 1 is exact)."""
+    x0, _, h, sps, nseg = geom
+    ks = torch.arange(sps * nseg + 1, dtype=env.dtype, device=env.device)
+    b = linear_interp(x0 + ks * h, env.bathy_r, env.bathy, env.uniform_bathy_r)
+    return b[:-1], b[1:]
+
+
 def _step_data(env: EnvData, geom, use_cheb, use_pow, use_seg, btol,
                oob_step=None, blend=True) -> StepData:
     """``oob_step``: the domain flags when the caller holds them already
@@ -381,8 +409,7 @@ def _step_data(env: EnvData, geom, use_cheb, use_pow, use_seg, btol,
     dtype, device = env.dtype, env.device
     rlo, rhi = env.r_dom
     xs0, xsm, xs1 = _step_ranges(env, geom)
-    b0s = linear_interp(xs0, env.bathy_r, env.bathy, env.uniform_bathy_r)
-    b1s = linear_interp(xs1, env.bathy_r, env.bathy, env.uniform_bathy_r)
+    b0s, b1s = _step_bathy(env, geom)
     if oob_step is None:
         # out-of-domain flags precomputed on the host in float64: f32 x0 +
         # k*h accumulates ~mm of rounding over 100 km, which must not decide
@@ -398,7 +425,9 @@ def _step_data(env: EnvData, geom, use_cheb, use_pow, use_seg, btol,
     elif env.range_dependent:
         prof_ms = _blend_rows(env, ctab, cptab, xsm)
         prof_1s = _blend_rows(env, ctab, cptab, xs1)
-        prof0 = _blend_rows(env, ctab, cptab, torch.tensor(x0, dtype=dtype, device=device))
+        # (1,) and not 0-d, as in _station_iw_rows: no read-back to the host
+        x0v = torch.full((1,), x0, dtype=dtype, device=device)
+        prof0 = tuple(t[0] for t in _blend_rows(env, ctab, cptab, x0v))
     else:
         prof_ms = prof_1s = None
         prof0 = (ctab[0], cptab[0])
@@ -1037,6 +1066,9 @@ def trace(
     x1: float,
     num_save: int,
     settings: SolverSettings = SolverSettings(),
+    calm=None,
+    dyn=None,
+    hot=None,
 ) -> TraceResult:
     """Trace a batch of rays from range ``x0`` to ``x1`` (x1 > x0).
 
@@ -1045,6 +1077,10 @@ def trace(
     or array; both are moved to the environment's device and dtype.  States
     are saved on ``num_save`` equally spaced ranges; the final point is the
     exact end state.
+
+    ``calm``, ``dyn`` and ``hot`` are the JAX package's precomputed block
+    classifications for its TPU kernel; the port has no such blocks, and
+    anything but None raises ``ValueError``.
 
     Dispatch (``settings.backend``): the CUDA kernel (``ops/stepper.py``)
     runs when the environment is on a CUDA device and
@@ -1064,13 +1100,24 @@ def trace(
     cover, as it does without differentiation.  Under differentiation the primal is the uncompensated one
     (no Kahan), whatever ``settings.kahan`` says.
     """
-    if not x1 > x0:
+    if calm is not None or dyn is not None or hot is not None:
+        raise ValueError("the calm, dyn and hot block classifiers are TPU scheduling and are "
+                         "not ported; pass calm=None, dyn=None and hot=None")
+    h, sps, nseg = _plan(float(x0), float(x1), int(num_save), settings.dx)
+    geom = (float(x0), float(x1), float(h), int(sps), int(nseg))
+    return _trace_planned(env, z0, p0, geom, settings)
+
+
+def _trace_planned(env: EnvData, z0, p0, geom, settings: SolverSettings,
+                   geo=None) -> TraceResult:
+    """``trace`` on the plan ``geom``; ``geo``: the plan's per-step inputs
+    for the fan kernel (``ops.stepper.step_geometry``), which a caller that
+    traces one geometry again and again builds once (built by the kernel's
+    wrapper when None; unused off the kernel)."""
+    if not geom[1] > geom[0]:
         raise ValueError("trace requires x1 > x0; mirror the environment for backwards shots")
     if settings.backend not in BACKENDS:
         raise ValueError(f"unknown backend {settings.backend!r}; use one of {BACKENDS}")
-    h, sps, nseg = _plan(float(x0), float(x1), int(num_save), settings.dx)
-    geom = (float(x0), float(x1), float(h), int(sps), int(nseg))
-
     need = (_wants_derivative(z0), _wants_derivative(p0), _env_wants_derivative(env))
     if any(need):
         return _trace_ad(env, z0, p0, geom, settings, *need)
@@ -1082,5 +1129,5 @@ def trace(
         if settings.backend == "kernel" and not ok:
             raise ValueError("CUDA kernel backend unsupported for this configuration")
         if ok and (settings.backend == "kernel" or env.device.type == "cuda"):
-            return trace_kernel(env, z0, p0, geom, settings)
+            return trace_kernel(env, z0, p0, geom, settings, geo)
     return _trace_impl(env, z0, p0, geom, settings)

@@ -28,8 +28,8 @@ def interval_index(x: torch.Tensor, grid: torch.Tensor, uniform: bool = False) -
     if uniform:
         # divide by a tensor: a Python divisor becomes a reciprocal multiply
         # on CUDA devices, which rounds differently from the CPU
-        step = (grid[-1] - grid[0]) / torch.tensor(float(n - 1), dtype=grid.dtype,
-                                                   device=grid.device)
+        step = (grid[-1] - grid[0]) / torch.full((), float(n - 1), dtype=grid.dtype,
+                                                 device=grid.device)
         # clamp before the integer cast: the cast of an out-of-range float
         # is undefined, the clamped index is the same either way
         f = torch.clamp(torch.floor((x - grid[0]) / step), -1.0, float(n))

@@ -42,11 +42,13 @@ expression: ``integrate._trace_impl``, ``integrate._trace_tangent_impl``,
 ``integrate._trace_tangent_save_impl``,
 ``integrate._trace_tangent_ens_impl``, ``integrate._trace_coef_tangent_impl``
 and ``integrate._trace_coef_tangent_rd_impl``.  All read the per-step data of
-``integrate._step_data`` (and, in the fan kernel's range-dependent segment
-mode and the range-dependent coefficient-tangent kernel, the station
-indices and weights of ``integrate._station_iw_rows``), so kernel and plain
-version see the same numbers.  The coefficient-tangent kernels evaluate
-the series by Clenshaw only.
+``integrate._step_data``, so kernel and plain version see the same numbers.
+For a range-dependent field the fan kernel and the coefficient-tangent
+kernel take the stations' tables (``integrate._profile_tabs``) and the
+station indices and weights of ``integrate._station_iw_rows``, and blend
+each step's rows themselves with the plain version's expression; the
+tangent kernels B2-B4 take the per-step rows ``_step_data`` blends.  The
+coefficient-tangent kernels evaluate the series by Clenshaw only.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ import torch
 
 from ..envdata import env_member
 from ..integrate import (
-    TraceResult, _as_batch, _ens_step_data, _save_ranges, _station_iw_rows, _step_data,
+    TraceResult, _as_batch, _ens_step_data, _profile_tabs, _save_ranges, _station_iw_rows,
+    _step_bathy, _step_data,
     _trace_coef_tangent_impl, _trace_coef_tangent_rd_impl, _trace_impl,
     _trace_tangent_ens_impl, _trace_tangent_impl, _trace_tangent_save_impl, _use_cheb, _use_seg,
 )
@@ -229,51 +232,83 @@ class _Inputs:
     z0: torch.Tensor | None
     p0: torch.Tensor | None
     consts: LaunchConsts
-    ccoef: torch.Tensor  # the initial right-hand side's rows (K,) or (E, K), or
-    cpcoef: torch.Tensor  # segment tables: (Ks, S), range-dependent (nr, Ks, S)
+    # the initial right-hand side's rows (K,) or (E, K); segment tables (Ks,
+    # S); range-dependent, for the kernels that blend stations themselves,
+    # the station tables (nr, K) or (nr, Ks, S)
+    ccoef: torch.Tensor
+    cpcoef: torch.Tensor
     bacoef: torch.Tensor  # (Kb,) bottom-angle series
     b0s: torch.Tensor  # (nsteps,) bathymetry at each step's start and end
     b1s: torch.Tensor
     xoob: torch.Tensor  # (nsteps,) bool, one byte each
-    rows: tuple  # spectral, range-dependent: (c_m, cp_m, c_1, cp_1), each (nsteps, K)
+    # range-dependent, per-step rows (the tangent kernels B2-B4): (c_m, cp_m,
+    # c_1, cp_1), each (nsteps, K)
+    rows: tuple
     rd: bool  # range-dependent
-    # segment mode, range-dependent: station index and weight at the launch
-    # range, then at each step's middle and end, (2 nsteps + 1,)
+    # range-dependent, station tables: the station index and weight at the
+    # launch range, then at each step's middle and end, (2 nsteps + 1,)
     st_i: torch.Tensor | None = None
     st_w: torch.Tensor | None = None
 
+    def _ptrs(self, ts):
+        return [t if t is None else t.data_ptr() for t in ts]
+
     def pointers(self):
-        """Device addresses, in launch order (every tensor here is
-        contiguous and held by this object while the kernel may read it);
-        NULL rows for a range-independent field."""
-        rows = self.rows or (None,) * 4
-        return [t if t is None else t.data_ptr()
-                for t in (self.ccoef, self.cpcoef, self.bacoef, self.b0s, self.b1s, self.xoob,
-                          *rows)]
+        """Device addresses for the kernels that read per-step rows, in
+        launch order (every tensor here is contiguous and held by this
+        object while the kernel may read it); NULL rows for a
+        range-independent field."""
+        return self._ptrs((self.ccoef, self.cpcoef, self.bacoef, self.b0s, self.b1s, self.xoob,
+                           *(self.rows or (None,) * 4)))
+
+    def station_pointers(self):
+        """Device addresses for the kernels that blend station tables
+        themselves (the fan kernel, the coefficient-tangent kernel); NULL
+        station rows for a range-independent field."""
+        return self._ptrs((self.ccoef, self.cpcoef, self.bacoef, self.b0s, self.b1s, self.xoob,
+                           self.st_i, self.st_w))
 
 
-def _inputs(env, z0, p0, geom, settings) -> _Inputs:
+def step_geometry(env, geom):
+    """``(b0s, b1s, st_i, st_w)``: the per-step inputs of the kernels that
+    blend stations themselves (the fan and coefficient-tangent kernels),
+    the per-step bathymetry of the plain version (``integrate._step_bathy``)
+    and, for a range-dependent field, its station intervals
+    (``integrate._station_iw_rows``; else None).  They depend on the
+    field's range stations, its bathymetry and the step plan only: a caller
+    that launches again on the same geometry with new coefficients (an
+    inversion's iterates) builds them once and passes them as ``geo``."""
+    st = _station_iw_rows(env, geom) if bool(env.range_dependent) else (None, None)
+    return (*_step_bathy(env, geom), *st)
+
+
+def _inputs(env, z0, p0, geom, settings, stations=False, geo=None) -> _Inputs:
     """Launch operands, computed by the plain version's own code
-    (``integrate._step_data``) so the kernel reads its exact numbers."""
+    (``integrate._step_data``, ``_profile_tabs``, ``_station_iw_rows``) so
+    the kernel reads its exact numbers.  ``stations`` (the fan and
+    coefficient-tangent kernels): a range-dependent field goes as its
+    station tables and station intervals, which the kernel blends itself,
+    not as per-step blended rows, and the per-step inputs are ``geo``
+    (``step_geometry``, built here when None).  A segment fit always goes
+    so (only the fan kernel takes one)."""
     z0v, p0v = _as_batch(env, z0, p0)
     consts, xoob = _launch_setup(env, settings, geom)
     seg, rd = consts.seg, bool(env.range_dependent)
-    # a range-dependent segment fit stays unblended: the kernel blends at
-    # each coefficient pick
-    sd = _step_data(env, geom, seg == 0, consts.use_pow, seg != 0, settings.bbox_tol, xoob,
-                    blend=not (seg and rd))
     rows, st_i, st_w = (), None, None
-    if seg and rd:
-        ccoef, cpcoef = env.c_seg, env.dcdz_seg
-        st_i, st_w = _station_iw_rows(env, geom)
+    if stations or seg:
+        b0s, b1s, st_i, st_w = step_geometry(env, geom) if geo is None else geo
+        tabs = _profile_tabs(env, seg == 0, consts.use_pow, seg != 0)
+        ccoef, cpcoef = tabs if rd else (t[0] for t in tabs)
     else:
+        sd = _step_data(env, geom, seg == 0, consts.use_pow, seg != 0, settings.bbox_tol, xoob)
+        b0s, b1s = sd.b0s, sd.b1s
         ccoef, cpcoef = sd.prof0
         if rd:
             rows = tuple(t.contiguous() for t in (*sd.prof_ms, *sd.prof_1s))
     return _Inputs(
         z0v.contiguous(), p0v.contiguous(), consts, ccoef.contiguous(), cpcoef.contiguous(),
-        env.bangle_cheb.contiguous(), sd.b0s.contiguous(), sd.b1s.contiguous(),
-        sd.oob_step.contiguous(), rows, rd, st_i, st_w,
+        env.bangle_cheb.contiguous(), b0s.contiguous(), b1s.contiguous(), xoob, rows, rd, st_i,
+        st_w,
     )
 
 
@@ -281,14 +316,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _IN = [_P] * 10  # ccoef cpcoef bacoef b0s b1s xoob c_m cp_m c_1 cp_1 (_Inputs.pointers)
+_IN_ST = [_P] * 8  # ccoef cpcoef bacoef b0s b1s xoob st_i st_w (_Inputs.station_pointers)
 # every kernel ends with: any_x_oob rd, x0 h zlo_m zhi_p sc off sin_lim s2b c2b b_sum
 # b_span, stream (_launch)
 _TAIL = [_I] * 2 + [_F] * 11 + [_P]
 _ARGTYPES = {
     "trace_fan_f32": (
-        [_P] * 2 + _IN + [_P] * 2  # p0 z0, inputs, st_i st_w
+        [_P] * 2 + _IN_ST  # p0 z0, inputs
         + [_P] * 7  # ts zs ps n_surf n_bott death dseg
-        + [_I] * 11  # B K Kb nseg sps use_pow bangle_cheb term_back kahan seg S
+        + [_I] * 12  # B K Kb nseg sps use_pow bangle_cheb term_back kahan seg S nr
         + [_F] * 2 + _TAIL  # seg_zlo seg_hinv
     ),
     "trace_tangent_f32": (
@@ -307,7 +343,7 @@ _ARGTYPES = {
         + [_I] * 8 + _TAIL  # E M K Kb nsteps use_pow bangle_cheb term_back
     ),
     "trace_coef_tangent_f32": (
-        [_P] * 2 + _IN + [_P] * 4  # p0 z0, inputs, st_i st_w, dcoef dcpcoef (D, K)
+        [_P] * 2 + _IN_ST + [_P] * 2  # p0 z0, inputs, dcoef dcpcoef (D, K)
         + [_P] * 9  # T z p (B,), dT dz dp (nr, D, B), n_surf n_bott death (B,)
         + [_I] * 8 + _TAIL  # B K Kb nsteps D nr bangle_cheb term_back
     ),
@@ -352,13 +388,14 @@ def _check_device(env, what):
     return dev
 
 
-def trace_kernel(env, z0, p0, geom, settings) -> TraceResult:
+def trace_kernel(env, z0, p0, geom, settings, geo=None) -> TraceResult:
     """Trace a fan through the CUDA kernel; returns a ``TraceResult`` (ODE
     convention) exactly as the torch-op loop does.
 
     ``geom`` is ``(x0, x1, h, steps_per_seg, num_seg)`` from
-    ``integrate._plan``.  On a CUDA environment this launches the kernel or
-    raises; on a CPU environment it runs the plain version, ``_trace_impl``.
+    ``integrate._plan``; ``geo`` is its ``step_geometry``, built here when
+    None.  On a CUDA environment this launches the kernel or raises; on a
+    CPU environment it runs the plain version, ``_trace_impl``.
     """
     global LAUNCHES, SEG_LAUNCHES
     if not kernel_supported(env, settings):
@@ -368,7 +405,7 @@ def trace_kernel(env, z0, p0, geom, settings) -> TraceResult:
         return _trace_impl(env, z0, p0, geom, settings)
 
     x0, x1, h, sps, nseg = geom
-    inp = _inputs(env, z0, p0, geom, settings)
+    inp = _inputs(env, z0, p0, geom, settings, stations=True, geo=geo)
     B = inp.p0.shape[0]
     num_save = nseg + 1
     ts = torch.empty((num_save, B), dtype=torch.float32, device=dev)
@@ -381,14 +418,15 @@ def trace_kernel(env, z0, p0, geom, settings) -> TraceResult:
     if B > 0:
         c = inp.consts
         outs = (ts, zs, ps, n_surf, n_bott, death, dseg)
-        # series terms and segments: (K,) rows, or (..., Ks, S) segment tables
-        K, S = (inp.ccoef.shape[-2], inp.ccoef.shape[-1]) if c.seg else (inp.ccoef.shape[0], 1)
-        st = [None if t is None else t.data_ptr() for t in (inp.st_i, inp.st_w)]
+        # series terms and segments: (K,) rows or (nr, K) station tables, or
+        # (..., Ks, S) segment tables
+        K, S = (inp.ccoef.shape[-2], inp.ccoef.shape[-1]) if c.seg else (inp.ccoef.shape[-1], 1)
+        nr = inp.ccoef.shape[0] if inp.rd else 1
         _launch("trace_fan_f32", dev,
-                [inp.p0.data_ptr(), inp.z0.data_ptr(), *inp.pointers(), *st,
+                [inp.p0.data_ptr(), inp.z0.data_ptr(), *inp.station_pointers(),
                  *(o.data_ptr() for o in outs),
                  B, K, inp.bacoef.shape[0], nseg, sps, int(c.use_pow), int(c.bangle_cheb),
-                 int(c.term_back), int(c.kahan), c.seg, S, c.seg_zlo, c.seg_hinv],
+                 int(c.term_back), int(c.kahan), c.seg, S, nr, c.seg_zlo, c.seg_hinv],
                 inp, geom)
         LAUNCHES += 1
         SEG_LAUNCHES += bool(c.seg)
@@ -545,10 +583,11 @@ def trace_tangent_ensemble_kernel(env_ens, z0, p0, dp0, geom, settings, sd=None)
     return outs
 
 
-def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd):
+def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd, geo):
     """Both coefficient-tangent wrappers: the checks, the plain version on
     a CPU environment, else one launch of ``trace_coef_tangent_f32``
-    (range-independent, or ``rd``), counted."""
+    (range-independent, or ``rd``), counted; ``geo``: ``step_geometry``,
+    built here when None."""
     global COEF_TANGENT_LAUNCHES, COEF_TANGENT_RD_LAUNCHES
     if bool(env.range_dependent) != rd:
         raise ValueError("trace_coef_tangent_rd_kernel takes range-dependent fits and "
@@ -570,7 +609,7 @@ def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd):
                          f"{tuple(dc.shape)} and {tuple(dcp.shape)}")
     if not 1 <= dc.shape[0] <= 65535 or (rd and nr > 65535):
         raise ValueError("the kernel's grid takes 1 to 65535 directions and stations")
-    inp = _inputs(env, z0, p0, geom, settings)
+    inp = _inputs(env, z0, p0, geom, settings, stations=True, geo=geo)
     B = inp.p0.shape[0]
     tshape = (nr, dc.shape[0], B) if rd else (dc.shape[0], B)
     outs = (tuple(torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3))
@@ -578,10 +617,8 @@ def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd):
             + tuple(torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)))
     if B > 0:
         c = inp.consts
-        st_rows = _station_iw_rows(env, geom) if rd else ()  # held while the kernel reads them
         _launch("trace_coef_tangent_f32", dev,
-                [inp.p0.data_ptr(), inp.z0.data_ptr(), *inp.pointers(),
-                 *((t.data_ptr() for t in st_rows) if rd else (None, None)), dc.data_ptr(),
+                [inp.p0.data_ptr(), inp.z0.data_ptr(), *inp.station_pointers(), dc.data_ptr(),
                  dcp.data_ptr(), *(o.data_ptr() for o in outs),
                  B, K, inp.bacoef.shape[0], sps * nseg, dc.shape[0], nr if rd else 1,
                  int(c.bangle_cheb), int(c.term_back)],
@@ -593,7 +630,7 @@ def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd):
     return outs
 
 
-def trace_coef_tangent_kernel(env, z0, p0, dcoef, dcpcoef, geom, settings):
+def trace_coef_tangent_kernel(env, z0, p0, dcoef, dcpcoef, geom, settings, geo=None):
     """Final-state trace with one forward tangent per coefficient direction
     of a range-independent spectral fit, through the CUDA kernel: direction
     d perturbs the Chebyshev coefficients ``c + a * dcoef[d]`` and ``dc/dz
@@ -602,23 +639,25 @@ def trace_coef_tangent_kernel(env, z0, p0, dcoef, dcpcoef, geom, settings):
     B), in the ODE convention (counterpart of ``trace_pallas_coef_tangent``).
     The series are evaluated by Clenshaw whatever ``env.poly_ok`` says (the
     wrapper traces ``dataclasses.replace(env, poly_ok=False)``); no Kahan
-    compensation.
+    compensation.  ``geo``: the plan's ``step_geometry``, built here when
+    None.
 
     On a CUDA environment this launches the kernel or raises; on a CPU
     environment it runs the plain version, ``_trace_coef_tangent_impl``.
     """
-    return _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd=False)
+    return _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, False, geo)
 
 
-def trace_coef_tangent_rd_kernel(env, z0, p0, dcoef, dcpcoef, geom, settings):
+def trace_coef_tangent_rd_kernel(env, z0, p0, dcoef, dcpcoef, geom, settings, geo=None):
     """``trace_coef_tangent_kernel`` for a range-dependent spectral fit:
     every direction g of ``(dcoef, dcpcoef)`` (Dk, K) applied at each
     station j in turn, through the CUDA kernel.  Returns the primal fields
     and counters (B,) and the tangents (nr, Dk, B) (counterpart of
     ``trace_pallas_coef_tangent_rd``).  Clenshaw whatever ``env.poly_ok``
-    says; no Kahan compensation.
+    says; no Kahan compensation.  ``geo``: the plan's ``step_geometry``,
+    built here when None.
 
     On a CUDA environment this launches the kernel or raises; on a CPU
     environment it runs the plain version, ``_trace_coef_tangent_rd_impl``.
     """
-    return _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd=True)
+    return _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, True, geo)

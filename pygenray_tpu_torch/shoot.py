@@ -140,6 +140,7 @@ def shoot_rays(
     dx: float = None,
     interp: str = "auto",
     dtype=None,
+    mesh=None,
     device="cuda",
     keep_dropped: bool = False,
     nan_dropped: bool = True,
@@ -154,7 +155,9 @@ def shoot_rays(
     CUDA device unless the caller asks for another, e.g. ``"cpu"``; an
     ``EnvData`` keeps its own), ``backend`` (see ``SolverSettings``) and
     ``keep_dropped`` (keep dead rays in the fan with their death
-    diagnostics instead of dropping them).  Rays that turn vertical, leave
+    diagnostics instead of dropping them).  ``mesh`` (the JAX package's
+    sharding of the angle axis) must be None: tracing across several
+    devices is not ported yet.  Rays that turn vertical, leave
     the domain, or bounce backwards are dropped from the fan exactly like
     the reference drops ``None`` rays.
 
@@ -165,6 +168,9 @@ def shoot_rays(
     import sys
     import time as _time
 
+    if mesh is not None:
+        raise NotImplementedError("tracing across a device mesh is not ported yet (ROADMAP "
+                                  "A11); pass mesh=None")
     launch_angles = np.atleast_1d(np.asarray(launch_angles, float))
     theta_ode = -launch_angles
     settings = settings_for(rtol, dx, interp, terminate_backwards, backend)

@@ -251,3 +251,29 @@ def test_build_flags_and_source_hash(monkeypatch):
         # one ctypes argument type per C parameter
         params = src.split(entry)[1].split(")")[0].split(",")
         assert len(params) == len(stepper._ARGTYPES[f"{name}_f32"])
+
+
+def test_step_geometry_is_the_plain_versions():
+    """The fan and coefficient-tangent kernels' per-step inputs (bathymetry
+    at each step's ends, station intervals) are the numbers of the plain
+    version's per-range evaluations, and a field with new coefficients on
+    the same stations (an inversion's iterate, which reuses them) has the
+    same ones."""
+    from pygenray_tpu_torch.integrate import _station_iw, _step_ranges
+    from pygenray_tpu_torch.ops.interp import linear_interp
+
+    _, te = env_pair("rd")
+    h, sps, nseg = _plan(1234.5, 60e3, 3, 500.0)
+    geom = (1234.5, 60e3, h, sps, nseg)
+
+    xs0, xsm, xs1 = _step_ranges(te, geom)
+    bathy = lambda x: linear_interp(x, te.bathy_r, te.bathy, te.uniform_bathy_r)
+    iw = [_station_iw(te, x) for x in (torch.full((), geom[0]), xsm, xs1)]
+    st_i = torch.cat([iw[0][0].reshape(1), torch.stack([iw[1][0], iw[2][0]], 1).reshape(-1)])
+    st_w = torch.cat([iw[0][1].reshape(1), torch.stack([iw[1][1], iw[2][1]], 1).reshape(-1)])
+
+    got = stepper.step_geometry(te, geom)
+    for a, b in zip(got, (bathy(xs0), bathy(xs1), st_i.to(torch.int32), st_w)):
+        assert a.is_contiguous() and torch.equal(a, b)
+    iterate = dataclasses.replace(te, c_cheb=te.c_cheb + 1.0)
+    assert all(torch.equal(a, b) for a, b in zip(stepper.step_geometry(iterate, geom), got))

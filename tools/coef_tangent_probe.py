@@ -1,15 +1,28 @@
 #!/usr/bin/env python3
-"""Device time of the coefficient-tangent kernels of several checkouts of
-the port, on one card.
+"""Device time of the inversion's kernels (B6 and the range-dependent fan,
+B1c) and of the other coefficient-tangent launches, for several checkouts
+of the port on one card, with the wrapper's share split off.
 
     python3 tools/coef_tangent_probe.py ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``pygenray_tpu_torch`` package (this
 repository's root, an unpacked ``git archive`` of another commit).  Every
 ROOT is measured in a process of its own, in the order given (pass them as
-A B B A to spread drift of the machine evenly), and prints one JSON line of
-CUDA-event times, wrapper included (the mean of 20 launches after a
-warm-up, taken 5 times: the median and the least, in ms):
+A B B A to spread drift of the machine evenly), and prints one JSON line.
+For each case it gives, in ms a launch:
+
+* ``event``: CUDA-event time of back-to-back wrapper calls, wrapper
+  included (the mean of 20 launches after a warm-up, taken 5 times: the
+  median and the least);
+* ``kernel``: the kernel's own device time from ``torch.profiler``'s rows
+  over 20 launches (the rows whose name holds the kernel's), and
+  ``device_other``: every other device row of the same window (the
+  wrapper's torch operations and copies);
+* ``host``: the wrapper's host time, one call at a time on an idle card
+  (median of 20; a wrapper that waits for the card inside is charged that
+  wait).
+
+The cases:
 
 * ``b5_bench``: ``trace_coef_tangent_kernel`` at ``bench.py``'s spectral
   Jacobian (the headline Munk field, K = 16; 512 rays over ±14°, 100 km,
@@ -20,9 +33,22 @@ warm-up, taken 5 times: the median and the least, in ms):
 * ``b6_inversion``: the same at ``examples/gradient_inversion_demo.py``'s
   step (9 stations, K = 32, dc/dz consistent; 128 rays over ±11°, 60 km,
   dx = 200 m) on its starting field;
+* ``b1c_inversion``: ``trace_kernel`` on that field and fan, the step's
+  2-save forward (Kahan off);
+* ``b1c_config1``: ``trace_kernel`` at BASELINE config 1 (64 stations,
+  axis deepening 2 m/km, bottom 4400 to 4900 m; 102,400 rays over ±15°,
+  100 km, 50 saves, dx = 100 m);
 * ``b2_fan8192``: ``trace_tangent_kernel`` over 8,192 rays of the headline
-  field, a kernel the coefficient-tangent sources do not build, as a
-  control for the machine.
+  field, a kernel whose code these redesigns do not touch, as a control for
+  the machine;
+* ``inversion_solve``: ``examples/gradient_inversion_demo.py``'s 150 Adam
+  steps at full size through ``travel_times_of_coef`` (one B1c and one B6
+  launch a step), as ``chip_smoke.inversion_phase`` runs them: the wall
+  time a step (synchronized at the end) and the misfit's drop.
+
+The wrappers are called as a user calls them, without the per-step
+geometry an inversion builds once (``stepper.step_geometry``), so that one
+script times checkouts from before and after that argument.
 """
 
 from __future__ import annotations
@@ -35,11 +61,13 @@ import sys
 import numpy as np
 
 SRC = 1300.0
+N_LAUNCH = 20
 
 
 def child(root):
     sys.path.insert(0, root)
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     import pygenray_tpu_torch as pt
     from pygenray_tpu_torch.adjoint import _CoefTimes, _deriv_matrix, _directions
@@ -48,7 +76,7 @@ def child(root):
 
     dev = torch.device("cuda", 0)
 
-    def events(fn, n=20, reps=5):
+    def events(fn, n=N_LAUNCH, reps=5):
         fn()
         runs = []
         for _ in range(reps):
@@ -61,15 +89,52 @@ def child(root):
             runs.append(e0.elapsed_time(e1) / n)
         return {"median": statistics.median(runs), "min": min(runs)}
 
-    def geom(x1, dx):
-        h, sps, nseg = _plan(0.0, x1, 2, dx)
+    def host(fn, n=N_LAUNCH):
+        import time
+
+        runs = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(runs)
+
+    def split(fn, kernel, n=N_LAUNCH):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        mine = other = 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            if not t:
+                continue
+            if kernel in e.key:
+                mine += t
+            else:
+                other += t
+        return mine / n / 1e3, other / n / 1e3
+
+    def measure(fn, kernel):
+        ev = events(fn)
+        k, o = split(fn, kernel)
+        return {"event": ev, "kernel": k, "device_other": o, "host": host(fn)}
+
+    def geom(x1, dx, nsave=2):
+        h, sps, nseg = _plan(0.0, x1, nsave, dx)
         return (0.0, x1, h, sps, nseg)
 
     def p0_of(env_c, angles):
         return torch.as_tensor(np.sin(np.radians(-angles)) / env_c, dtype=torch.float32,
                                device=dev)
 
-    out = {"root": root, "package": pt.__file__}
+    out = {"root": root, "package": pt.__file__, "card": torch.cuda.get_device_name(0)}
     # the headline field: B5 at bench.py's Jacobian, B2 at 8,192 rays
     z = np.linspace(0.0, 6000.0, 2048)
     r = np.linspace(0.0, 100e3, 32)
@@ -79,10 +144,7 @@ def child(root):
     s, g = pt.SolverSettings(dx=200.0), geom(100e3, 200.0)
     dcs, dcps = _directions(_deriv_matrix(env))
     p0 = p0_of(c_src, np.linspace(-14.0, 14.0, 512))
-    out["b5_bench"] = events(lambda: stepper.trace_coef_tangent_kernel(env, SRC, p0, dcs, dcps,
-                                                                       g, s))
     p8 = p0_of(c_src, np.linspace(-18.0, 18.0, 8192))
-    out["b2_fan8192"] = events(lambda: stepper.trace_tangent_kernel(env, SRC, p8, 1.0, g, s))
 
     # bench.py's 2D Jacobian field
     z2 = np.linspace(0.0, 6000.0, 2000)
@@ -93,8 +155,6 @@ def child(root):
     s2, g2 = pt.SolverSettings(dx=100.0, interp="cheb", kahan=False), geom(100e3, 100.0)
     d2, dp2 = _directions(_deriv_matrix(env2))
     p2 = p0_of(float(pt.bilinear_np(0.0, SRC, r2, z2, c2)), np.linspace(-12.0, 12.0, 64))
-    out["b6_2d"] = events(lambda: stepper.trace_coef_tangent_rd_kernel(env2, SRC, p2, d2, dp2, g2,
-                                                                       s2))
 
     # the gradient-inversion demo's step, on its starting field
     z3 = np.linspace(0.0, 6000.0, 1200)
@@ -109,13 +169,80 @@ def child(root):
                     60e3, s3)
     env3k = op.env_with(env3.c_cheb)
     d3, dp3 = _directions(op.Dm)
-    out["b6_inversion"] = events(lambda: stepper.trace_coef_tangent_rd_kernel(
-        env3k, SRC, op.p0, d3, dp3, op.geom, s3))
+
+    # BASELINE config 1
+    c1 = np.array([pt.munk_ssp(z, sofar_depth=1300 + 0.002 * ri) for ri in np.linspace(0, 100e3, 64)])
+    r1 = np.linspace(0.0, 100e3, 64)
+    env1 = pt.make_env_data(c1, r1, z, np.linspace(4400.0, 4900.0, 64), r1, dtype=torch.float32,
+                            device=dev)
+    s1, g1 = pt.SolverSettings(dx=100.0), geom(100e3, 100.0, 50)
+    p1 = p0_of(float(pt.bilinear_np(0.0, SRC, r1, z, c1)), np.linspace(-15.0, 15.0, 102_400))
+
+    cases = {
+        "b6_2d": (lambda: stepper.trace_coef_tangent_rd_kernel(env2, SRC, p2, d2, dp2, g2, s2),
+                  "coef_tangent"),
+        "b6_inversion": (lambda: stepper.trace_coef_tangent_rd_kernel(
+            env3k, SRC, op.p0, d3, dp3, op.geom, s3), "coef_tangent"),
+        "b1c_inversion": (lambda: stepper.trace_kernel(env3k, SRC, op.p0, op.geom, s3),
+                          "trace_fan"),
+        "b1c_config1": (lambda: stepper.trace_kernel(env1, SRC, p1, g1, s1), "trace_fan"),
+    }
+    out["b5_bench"] = measure(
+        lambda: stepper.trace_coef_tangent_kernel(env, SRC, p0, dcs, dcps, g, s), "coef_tangent")
+    for name, (fn, kernel) in cases.items():
+        out[name] = measure(fn, kernel)
+    out["b2_fan8192"] = measure(lambda: stepper.trace_tangent_kernel(env, SRC, p8, 1.0, g, s),
+                                "trace_tangent")
+    out["inversion_solve"] = inversion_solve(torch, pt, dev, z3, r3, env3, s3)
     print(json.dumps(out), flush=True)
 
 
+def inversion_solve(torch, pt, dev, z, r, env0, s, iters=150, lr=0.03, lam=1e-10):
+    """The demo's inversion (a +3 m/s lens at 900 m and 40 % range; 128
+    rays over ±11°, 60 km): ms a step over ``iters`` Adam steps after one
+    warm-up step, and the misfit's drop."""
+    import time
+
+    from pygenray_tpu_torch.adjoint import travel_times_of_coef
+
+    dc_true = (3.0 * np.exp(-(((z - 900.0) / 700.0) ** 2))[None, :]
+               * np.exp(-(((r - 0.4 * r[-1]) / (0.18 * r[-1])) ** 2))[:, None])
+    env_true = pt.make_env_data(np.outer(np.ones(len(r)), pt.munk_ssp(z)) + dc_true, r, z,
+                                np.full(len(r), 5500.0), r, dtype=torch.float32, device=dev,
+                                cheb_order=31, cheb_exact_order=True,
+                                force_range_dependent=True, dcdz="consistent")
+    c_src = np.interp(SRC, z, env0.c[0].cpu().numpy())
+    p0 = (np.sin(np.radians(-np.linspace(-11.0, 11.0, 128))) / c_src).astype(np.float32)
+    T_obs = travel_times_of_coef(env_true, SRC, p0, 0.0, float(r[-1]), s)(env_true.c_cheb)
+    f = travel_times_of_coef(env0, SRC, p0, 0.0, float(r[-1]), s)
+    cc0 = env0.c_cheb
+
+    def value_and_grad(cc):
+        c = cc.detach().requires_grad_(True)
+        d = f(c) - T_obs
+        val = 0.5 * (d * d).sum() + lam * ((c - cc0) ** 2).sum()
+        (g,) = torch.autograd.grad(val, c)
+        return val.detach(), g
+
+    value_and_grad(cc0)
+    cc, m, v = cc0.clone(), torch.zeros_like(cc0), torch.zeros_like(cc0)
+    hist = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(iters):
+        val, g = value_and_grad(cc)
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        cc = cc - lr * (m / (1 - 0.9 ** (it + 1))) / (torch.sqrt(v / (1 - 0.999 ** (it + 1)))
+                                                       + 1e-12)
+        hist.append(val)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"ms_per_step": wall / iters * 1e3, "misfit_drop": float(hist[0]) / float(hist[-1])}
+
+
 def main():
-    if len(sys.argv) >= 3 and sys.argv[1] == "--child":
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
         child(sys.argv[2])
         return 0
     if len(sys.argv) < 2:
