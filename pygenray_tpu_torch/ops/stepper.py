@@ -89,9 +89,29 @@ COEF_TANGENT_RD_LAUNCHES = 0  # trace_coef_tangent_f32, range-dependent
 
 MAX_K = 256  # coefficient rows held in shared memory (csrc TF_MAX_K)
 MAX_KB = 128  # bottom-angle series length (csrc TF_MAX_KB)
-# bytes of a range-independent segment fit's two (Ks, S) tables in shared
-# memory (csrc TF_MAX_SEG_SMEM; the card gives a block 227 KB)
+# bytes of segment tables a block holds in shared memory (csrc
+# TF_MAX_SEG_SMEM; the card gives a block 227 KB): a range-independent fit's
+# two (Ks, S) tables, or a range-dependent fit's blended step tables
 MAX_SEG_SMEM = 200 * 1024
+SEG_SMEM_S = 128  # segments a profile of the shared-memory step tables (csrc TF_SEG_S)
+SEG_LAYOUTS = ("pick", "double", "single")  # csrc TF_SEG_PICK, TF_SEG_DOUBLE, TF_SEG_SINGLE
+
+
+def seg_layout(Ks: int, S: int) -> str:
+    """Where the fan kernel keeps a range-dependent segment fit's per-step
+    tables (the four (Ks, S) tables of c and dc/dz at a step's middle and
+    end, which the block blends from the stations' tables), as its launcher
+    (``csrc/trace_fan.cu`` ``seg_layout``) chooses: "double", two steps'
+    tables in shared memory, one barrier a step; "single", one step's, two
+    barriers a step; "pick", none, each coefficient pick blending the two
+    stations from device memory (only an exact-order fit above the ladder
+    reaches it)."""
+    step = 4 * Ks * S * 4
+    if S != SEG_SMEM_S:
+        return "pick"
+    if 2 * step <= MAX_SEG_SMEM:
+        return "double"
+    return "single" if step <= MAX_SEG_SMEM else "pick"
 
 
 def _seg_mode(env, settings) -> int:
@@ -132,19 +152,18 @@ def kernel_supported(env, settings) -> bool:
     constant or Chebyshev bottom angle in float32 (the JAX package's
     ``pallas_supported``, ``ops/pallas_stepper.py:72``).  Its
     ``seg_kernel_ok`` caps a range-dependent segment fit at what the TPU's
-    vector memory holds; the CUDA kernel reads those tables from device
-    memory and needs no cap.  A range-independent segment fit's tables go
-    to shared memory (``MAX_SEG_SMEM``)."""
+    vector memory holds; the CUDA kernel takes every fit size: a
+    range-dependent fit's step tables go where ``seg_layout`` says, a
+    range-independent fit's tables to shared memory when they fit
+    (``MAX_SEG_SMEM``), else they are read from device memory."""
     if tangent_supported(env, settings):
         return True
     if not _seg_mode(env, settings):
         return False
-    Ks, S = env.c_seg.shape[-2:]
     return (
         env.bangle_mode in ("const", "cheb")
         and env.dtype == torch.float32
         and env.bangle_cheb.shape[-1] <= MAX_KB
-        and (env.range_dependent or 8 * Ks * S <= MAX_SEG_SMEM)
     )
 
 

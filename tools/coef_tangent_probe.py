@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device time of the inversion's kernels (B6 and the range-dependent fan,
-B1c) and of the other coefficient-tangent launches, for several checkouts
-of the port on one card, with the wrapper's share split off.
+B1c), of the other coefficient-tangent launches and of the fan kernel's
+segment mode (B1d), for several checkouts of the port on one card, with
+the wrapper's share split off.
 
-    python3 tools/coef_tangent_probe.py ROOT [ROOT ...]
+    python3 tools/coef_tangent_probe.py [--variants] ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``pygenray_tpu_torch`` package (this
 repository's root, an unpacked ``git archive`` of another commit).  Every
@@ -38,6 +39,16 @@ The cases:
 * ``b1c_config1``: ``trace_kernel`` at BASELINE config 1 (64 stations,
   axis deepening 2 m/km, bottom 4400 to 4900 m; 102,400 rays over ±15°,
   100 km, 50 saves, dx = 100 m);
+* ``b1d_rough``: ``trace_kernel`` in its segment mode on realization 0 of
+  ``bench.py``'s rough field (``tests/fixtures/rough_field.py``: Munk plus
+  eight sines, nz = 2001, 16 stations, flat 5000 m; the Chebyshev segment
+  fit of 32 terms the rough ensemble takes) at the shape the rough
+  ``trace_ensemble`` gives each launch: 65,536 rays over ±15°, 100 km,
+  dx = 100 m, 2 saves;
+* ``b1d_ri_pow``, ``b1d_ri_cheb``: the segment mode on a range-independent
+  Munk fit (nz = 2048; basis "pow", 8 terms, and "cheb", 32 terms), 8,192
+  rays over ±18° to 30 km, dx = 200 m, 10 saves (``chip_smoke.py``'s
+  ``seg_kernel_phase`` cases);
 * ``b2_fan8192``: ``trace_tangent_kernel`` over 8,192 rays of the headline
   field, a kernel whose code these redesigns do not touch, as a control for
   the machine;
@@ -49,6 +60,11 @@ The cases:
 The wrappers are called as a user calls them, without the per-step
 geometry an inversion builds once (``stepper.step_geometry``), so that one
 script times checkouts from before and after that argument.
+
+``--variants``: in a checkout whose ``csrc/trace_fan.cu`` has the segment
+mode's compile-time variants, also build that source with each variant's
+``-D`` flags (``SEG_VARIANTS``) and time ``b1d_rough`` through it, each held
+bit for bit to the checkout's own build.
 """
 
 from __future__ import annotations
@@ -62,9 +78,38 @@ import numpy as np
 
 SRC = 1300.0
 N_LAUNCH = 20
+# the segment mode's variants: the step tables' block size, one buffer at
+# every K, the current interval's stations staged in shared memory
+SEG_VARIANTS = {
+    "block256": ("-DTF_SEG_BLOCK=256",),
+    "single": ("-DTF_SEG_VARIANT_SINGLE",),
+    "single_block256": ("-DTF_SEG_VARIANT_SINGLE", "-DTF_SEG_BLOCK=256"),
+    "resident": ("-DTF_SEG_VARIANT_RESIDENT",),
+}
 
 
-def child(root):
+def build_variants(root):
+    """Start one nvcc per variant of ``root``'s trace_fan.cu; returns
+    {name: (library path, process)} (nothing when the source has none)."""
+    import pathlib
+
+    from pygenray_tpu_torch.ops import _build
+
+    src = pathlib.Path(root) / "pygenray_tpu_torch" / "csrc" / "trace_fan.cu"
+    if "TF_SEG_VARIANT_RESIDENT" not in src.read_text():
+        return {}
+    out = pathlib.Path(root) / "pygenray_tpu_torch" / "_build" / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, flags in SEG_VARIANTS.items():
+        so = out / f"libtrace_fan_{name}.so"
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(so), str(src)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def child(root, variants=False):
     sys.path.insert(0, root)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -75,6 +120,7 @@ def child(root):
     from pygenray_tpu_torch.ops import stepper
 
     dev = torch.device("cuda", 0)
+    var_builds = build_variants(root) if variants else {}
 
     def events(fn, n=N_LAUNCH, reps=5):
         fn()
@@ -178,7 +224,33 @@ def child(root):
     s1, g1 = pt.SolverSettings(dx=100.0), geom(100e3, 100.0, 50)
     p1 = p0_of(float(pt.bilinear_np(0.0, SRC, r1, z, c1)), np.linspace(-15.0, 15.0, 102_400))
 
+    # bench.py's rough field, realization 0 (tests/fixtures/rough_field.py)
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "rough_field", f"{root}/tests/fixtures/rough_field.py")
+    rough = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rough)
+    cr, rr, zr = rough.rough_tables(pt.munk_ssp, 1)
+    env_r = pt.make_env_data(cr[0], rr, zr, np.full(len(rr), 5000.0), rr, dtype=torch.float32,
+                             device=dev, interp="seg", seg_basis="cheb", seg_order=31,
+                             seg_exact_order=True)
+    s_r, g_r = pt.SolverSettings(dx=100.0), geom(100e3, 100.0)
+    p_r = p0_of(float(pt.munk_ssp(np.asarray([SRC]))[0]), np.linspace(-15.0, 15.0, 65_536))
+    # range-independent segment fits of Munk, as chip_smoke's seg_kernel_phase
+    seg_ri = {}
+    for basis in ("pow", "cheb"):
+        e = pt.make_env_data(np.outer(np.ones(32), pt.munk_ssp(z)), r, z, np.full(32, 5000.0), r,
+                             interp="seg", seg_basis=basis, dtype=torch.float32, device=dev)
+        seg_ri[basis] = (e, p0_of(c_src, np.linspace(-18.0, 18.0, 8192)))
+    g_ri = geom(30e3, 200.0, 10)
+
     cases = {
+        "b1d_rough": (lambda: stepper.trace_kernel(env_r, SRC, p_r, g_r, s_r), "trace_fan"),
+        "b1d_ri_pow": (lambda: stepper.trace_kernel(seg_ri["pow"][0], SRC, seg_ri["pow"][1], g_ri,
+                                                    s), "trace_fan"),
+        "b1d_ri_cheb": (lambda: stepper.trace_kernel(seg_ri["cheb"][0], SRC, seg_ri["cheb"][1],
+                                                     g_ri, s), "trace_fan"),
         "b6_2d": (lambda: stepper.trace_coef_tangent_rd_kernel(env2, SRC, p2, d2, dp2, g2, s2),
                   "coef_tangent"),
         "b6_inversion": (lambda: stepper.trace_coef_tangent_rd_kernel(
@@ -193,6 +265,25 @@ def child(root):
         out[name] = measure(fn, kernel)
     out["b2_fan8192"] = measure(lambda: stepper.trace_tangent_kernel(env, SRC, p8, 1.0, g, s),
                                 "trace_tangent")
+    out["b1d_rough"]["seg_terms"] = int(env_r.c_seg.shape[-2])
+    if var_builds:
+        ref = stepper.trace_kernel(env_r, SRC, p_r, g_r, s_r)
+        own = stepper._kernel_fn("trace_fan_f32")
+        for name, (so, proc) in var_builds.items():
+            log = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"variant {name} did not build:\n{log}")
+            fn = getattr(__import__("ctypes").CDLL(str(so)), "trace_fan_f32")
+            fn.argtypes, fn.restype = own.argtypes, own.restype
+            stepper._FNS["trace_fan_f32"] = fn
+            got = stepper.trace_kernel(env_r, SRC, p_r, g_r, s_r)
+            equal = all(bool(torch.equal(getattr(got, f), getattr(ref, f))) for f in
+                        ("ts", "zs", "ps", "n_surf", "n_bott", "death_code", "alive_save"))
+            out[f"b1d_rough_{name}"] = {**measure(lambda: stepper.trace_kernel(
+                env_r, SRC, p_r, g_r, s_r), "trace_fan"), "equal": equal,
+                "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln
+                          or "spill" in ln][:80]}
+        stepper._FNS["trace_fan_f32"] = own
     out["inversion_solve"] = inversion_solve(torch, pt, dev, z3, r3, env3, s3)
     print(json.dumps(out), flush=True)
 
@@ -242,14 +333,16 @@ def inversion_solve(torch, pt, dev, z, r, env0, s, iters=150, lr=0.03, lam=1e-10
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        child(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--child":
+        child(sys.argv[2], "--variants" in sys.argv[3:])
         return 0
-    if len(sys.argv) < 2:
+    args = [a for a in sys.argv[1:] if a != "--variants"]
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    for root in sys.argv[1:]:
-        rc = subprocess.run([sys.executable, __file__, "--child", root]).returncode
+    extra = ["--variants"] if "--variants" in sys.argv[1:] else []
+    for root in args:
+        rc = subprocess.run([sys.executable, __file__, "--child", root, *extra]).returncode
         if rc:
             return rc
     return 0
