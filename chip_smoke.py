@@ -25,11 +25,13 @@ central differences and the JAX package's answers
 (``tests/fixtures/receiver_jax_f32.npz``, written by
 ``tests/fixtures/make_receiver_fixture.py``).  It times kernels, plain
 versions, eigenray latencies and the receiver-side calls, and holds the
-save-grid tangent kernel to its plain version once more at each full shape
-those calls gave it.  Monte Carlo: it holds the fan kernel's segment mode
-(rough fields) and the ensemble forward-tangent kernel
-(``trace_tangent_ens.cu``) to their plain versions at the shapes the
-Monte-Carlo paths give them, drives
+save-grid tangent kernel to its plain version once more at the shapes
+those calls gave it (the TL demo's and the array response's over about
+30 km: ``cut_plan``).  Monte Carlo: it holds the fan kernel's segment mode
+(rough fields) to its plain version at the shape the rough ensemble gives
+it and at the step-table layouts of 96- and 128-term fits, and the
+ensemble forward-tangent kernel (``trace_tangent_ens.cu``) with config
+4b's every candidate over 30 km, drives
 ``trace_ensemble`` over BASELINE config 4's 16 internal-wave realizations
 × 65,536 rays and over ``bench.py``'s 16-realization rough field at full
 width, and ``mc_eigenray_times`` at config 4b, and holds the Monte-Carlo
@@ -43,7 +45,8 @@ shapes, on a bottom-bouncing fan and at the inversion's shapes, drives
 ``travel_times_of_coef`` at full size, and holds every adjoint operator to
 the JAX package's answers (``tests/fixtures/adjoint_jax_f32.npz``, written
 by ``tests/fixtures/make_adjoint_fixture.py``).  Each phase prints
-one line; the last line is ``{"ok": true, "device": {...}}``.  Any failure
+one line; a ``phase_seconds`` line gives each phase's seconds and the
+script's total; the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero without that line.  It needs no network and
 imports no JAX.
 """
@@ -60,6 +63,8 @@ import time
 import types
 
 import numpy as np
+
+T_START = time.perf_counter()
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
@@ -139,7 +144,15 @@ DUAL_FACTOR = 2.5
 MC_E = 16
 MC_RAYS = 65_536
 ROUGH_DX = 100.0
-SEG_X1 = 30e3  # range of the range-independent segment-mode comparisons
+SEG_X1 = 30e3  # range of the segment-mode comparisons other than the rough shape
+# about the range of the plain comparisons that run shorter than the main
+# path's shape (B3 at the TL demo and the array response, B4 at config 4b)
+CMP_X1 = 30e3
+SEG_S = 128  # segments of a segment fit (ops/seg.py SEG_S)
+# terms of the rough exact-order fits whose step tables take the layouts the
+# main path's 32 does not (stepper.seg_layout): one buffer, none
+SEG_OTHER_K = (96, 128)
+SEG_SMALL_RAYS = 4096
 # Monte-Carlo eigenrays, the port's one-shot Newton against the JAX
 # package's regula falsi (tests/test_montecarlo.py:331-337)
 MC_ANGLE_DEG = 0.05
@@ -216,6 +229,17 @@ def require(cond, msg):
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+PHASE_S = {}  # seconds of each phase of main(), in order
+
+
+def phase_done(name, _last=[T_START]):
+    """Charge the seconds since the last phase ended (or the script
+    started) to phase ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = round(now - _last[0], 2)
+    _last[0] = now
 
 
 def headline_env(torch, pt, device, bathy=None):
@@ -340,24 +364,29 @@ def fan_bound(res, env, sps):
 def seg_step_ops(env):
     """FP32 operations of one forward ray-step in the segment mode, counted
     from csrc/trace_fan.cu as ``step_ops`` does: four right-hand sides of
-    two Ks-term series each (Horner 2 ops a term, Clenshaw 4; with a
-    range-dependent field 3 more a term to blend the two stations) plus 8
-    for each segment pick, 18 around them, and about 50 for the rest."""
+    two Ks-term series each (Horner 2 ops a term, Clenshaw 4) plus 8 for
+    each segment pick, 18 around them, and about 50 for the rest.  A
+    range-dependent field's blend is a step's work, not a pick's
+    (``seg_fan_bound``)."""
     Ks = env.c_seg.shape[-2]
-    term = (2 if env.seg_basis == "pow" else 4) + (3 if env.range_dependent else 0)
+    term = 2 if env.seg_basis == "pow" else 4
     return 4 * (2 * ((Ks - 1) * term + 3) + 8 + 18) + 50
 
 
 def seg_fan_bound(res, env, sps):
-    """Bound of one segment-mode launch: the ray-steps its rays lived, each
-    input read once (the (nr, Ks, S) tables, the per-step station indices
-    and weights) and each output written once."""
+    """Bound of one segment-mode launch: the ray-steps its rays lived, and
+    for a range-dependent field each step's four (Ks, S) tables blended once
+    (3 operations an entry: 12 Ks S a step, as ``fan_bound`` counts a
+    spectral field's rows), each input read once (the (nr, Ks, S) tables,
+    the per-step station indices and weights) and each output written
+    once."""
     B, S = res.ts.shape
     ray_steps = float((res.alive_save.sum(1) - 1).clamp(min=0).sum()) * sps
     nsteps = (S - 1) * sps
+    blend = 12 * env.c_seg[0].numel() * nsteps if env.range_dependent else 0
     tables = 8 * (env.c_seg.numel() if env.range_dependent else env.c_seg[0].numel())
     nbytes = B * (8 + 12 * S + 16) + nsteps * (9 + 16) + tables
-    return bound(ray_steps * seg_step_ops(env), nbytes)
+    return bound(ray_steps * seg_step_ops(env) + blend, nbytes)
 
 
 def tangent_bound(out, env, nsteps):
@@ -827,22 +856,37 @@ def receiver_vs_jax_phase(cx):
             f"receiver side off the JAX package: {errs}")
 
 
+def cut_plan(x1, num_save, dx):
+    """The plan of a comparison cut to about ``CMP_X1`` at the same step and
+    save spacing as the plan of ``(x1, num_save, dx)``: ``(geom, saves)``."""
+    from pygenray_tpu_torch.integrate import _plan
+
+    seg_len = x1 / (num_save - 1)
+    nseg = max(1, round(CMP_X1 / seg_len))
+    h, sps, nseg = _plan(0.0, nseg * seg_len, nseg + 1, dx)
+    return (0.0, nseg * seg_len, h, sps, nseg), nseg + 1
+
+
 def save_tangent_times_phase(cx, rcv, plain_8192_ms):
     """The save-grid tangent kernel at the shapes the receiver side gives
     it: the headline fan's (102,400 rays, 490 steps, 50 saves), the TL
     demo's (2,001 rays, 2,400 steps of 50 m, 301 saves) and the array
-    response's (its eigenrays, 2,000 steps of 50 m, 400 saves), each held
-    to the plain version at that full shape as ``save_tangent_phase`` holds
-    the 8,192-ray fans, with device times (CUDA events, wrapper included),
-    bounds, the plain version's wall time, and the host share of each
-    full-width call.  Returns (the rows by shape, the worst errors)."""
+    response's (its eigenrays, 2,000 steps of 50 m, 400 saves), with device
+    times (CUDA events, wrapper included) and bounds at each full shape, and
+    the host share of each full-width call.  Each is held to the plain
+    version as ``save_tangent_phase`` holds the 8,192-ray fans: the headline
+    fan at its full shape; the TL demo and the array response with every ray
+    but cut to about ``CMP_X1`` at the same step and save spacing
+    (``cut_plan``), where the plain loop, whose time goes with its steps and
+    not its rays, takes a quarter of the time.  Returns (the rows by shape,
+    the worst errors)."""
     from pygenray_tpu_torch.envdata import host_profile_tables
     from pygenray_tpu_torch.integrate import _trace_tangent_save_impl
 
     torch, pt, stepper, s = cx.torch, cx.pt, cx.stepper, cx.settings
     rows, errs_all = {}, []
 
-    def shape(label, env, src, angles, x1, num_save, st, plain=True):
+    def shape(label, env, src, angles, x1, num_save, st, plain=True, cut=False):
         h, sps, nseg = cx.plan(0.0, x1, num_save, st.dx)
         geom = (0.0, x1, h, sps, nseg)
         c_src = float(pt.bilinear_np(0.0, src, *host_profile_tables(env)))
@@ -854,6 +898,11 @@ def save_tangent_times_phase(cx, rcv, plain_8192_ms):
         rows[label] = {"rays": len(angles), "steps": sps * nseg, "saves": num_save,
                        "kernel_event_ms": ms, "bound_ms": b_ms, "bound_by": b_by}
         if plain:
+            if cut:
+                geom, saves = cut_plan(x1, num_save, st.dx)
+                out_k = stepper.trace_tangent_save_kernel(env, src, p0, 1.0, geom, st)
+                rows[label]["compared_at"] = {"range_m": geom[1], "steps": geom[3] * geom[4],
+                                              "saves": saves}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out_p = _trace_tangent_save_impl(env, src, p0, 1.0, geom, st)
@@ -866,9 +915,10 @@ def save_tangent_times_phase(cx, rcv, plain_8192_ms):
     shape("fan8192", cx.env_h, SRC_DEPTH, cx.eq_angles, R_MAX, NUM_SAVE, s, plain=False)
     rows["fan8192"]["plain_ms"] = plain_8192_ms  # compared in save_tangent_phase
     s50 = pt.SolverSettings(dx=50.0)  # the demos' default step
-    shape("tl_demo", rcv.tl_env.env_data(flatearth=False), 1000.0, rcv.tl_angles, 120e3, 301, s50)
+    shape("tl_demo", rcv.tl_env.env_data(flatearth=False), 1000.0, rcv.tl_angles, 120e3, 301, s50,
+          cut=True)
     shape("array_response_eigenrays", rcv.ir_env.env_data(flatearth=False), 1300.0,
-          rcv.eig_angles, 100e3, 400, s50)
+          rcv.eig_angles, 100e3, 400, s50, cut=True)
     # the host share of each full-width call: its wall time less the device
     # time of its one save-grid tangent launch
     calls = {"arrival_amplitudes_headline": (rcv.arr_s, rows["headline"]["kernel_event_ms"]),
@@ -930,14 +980,29 @@ def rough_field():
 def seg_kernel_phase(cx):
     """The fan kernel's segment mode against its plain version: a
     range-independent Munk fit in each basis ("pow", Horner: 8 terms;
-    "cheb", Clenshaw: 32), 8,192 rays to 30 km; and realization 0 of the
-    rough field (range-dependent, two stations blended at each pick) at the
-    shape the rough trace_ensemble gives each launch: 65,536 rays to 100 km,
-    dx = 100 m, 2 saves.  Returns (worst errors, the rough case's row for
-    the times: kernel and plain ms, bound)."""
-    from pygenray_tpu_torch.envdata import env_member
+    "cheb", Clenshaw: 32), 8,192 rays to 30 km; realization 0 of the rough
+    field (range-dependent, 32 terms: the block blends each step's tables
+    into two buffers in shared memory) at the shape the rough trace_ensemble
+    gives each launch: 65,536 rays to 100 km, dx = 100 m, 2 saves; and the
+    layouts the main path does not take, on exact-order fits of the same
+    realization: 96 terms (one buffer) and 128 (no buffer: each pick blends
+    from device memory), 4,096 rays to 30 km.  First a line of the layout
+    the launcher (``trace_fan_seg_layout``) takes for each K of both fit
+    ladders and for 128, which must be ``stepper.seg_layout``'s.  Returns
+    (worst errors, the rough case's row for the times: kernel and plain ms,
+    bound)."""
+    from pygenray_tpu_torch.envdata import SEG_CHEB_LADDER, SEG_ORDER_LADDER, env_member
+    from pygenray_tpu_torch.ops import _build
 
     torch, pt, stepper = cx.torch, cx.pt, cx.stepper
+    lay = _build.load("trace_fan").trace_fan_seg_layout
+    layouts = {}
+    for K in [o + 1 for o in SEG_ORDER_LADDER + SEG_CHEB_LADDER] + [128]:
+        got = stepper.SEG_LAYOUTS[lay(K, SEG_S)]
+        require(got == stepper.seg_layout(K, SEG_S),
+                f"K = {K}: the launcher takes {got}, stepper.seg_layout says "
+                f"{stepper.seg_layout(K, SEG_S)}")
+        layouts[K] = got
     z, r = np.linspace(0.0, 6000.0, NZ), np.linspace(0.0, R_MAX, NR)
     errs, out = [], {}
     cases = []
@@ -949,8 +1014,23 @@ def seg_kernel_phase(cx):
         require(env.has_seg and env.seg_basis == basis and not env.range_dependent,
                 f"the {basis} segment fit is not range-independent")
         cases.append((f"segment_{basis}", env, cx.settings, p0_eq(env), SEG_X1, 10))
-    cases.append(("segment_rough_rd", env_member(cx.env_sg, 0), pt.SolverSettings(dx=ROUGH_DX),
-                  on_card(cx, mc_launch_p0(cx)), R_MAX, 2))
+    s_rough = pt.SolverSettings(dx=ROUGH_DX)
+    rough0 = env_member(cx.env_sg, 0)
+    cases.append(("segment_rough_rd", rough0, s_rough, on_card(cx, mc_launch_p0(cx)), R_MAX, 2))
+    c, r_s, z_s = rough_field().rough_tables(pt.munk_ssp, 1)
+    p0_small = on_card(cx, np.sin(np.radians(-np.linspace(-ANGLE_SPAN, ANGLE_SPAN, SEG_SMALL_RAYS)))
+                       / cx.c_src_mc)
+    for K in SEG_OTHER_K:
+        env = pt.make_env_data(c[0], r_s, z_s, np.full(len(r_s), 5000.0), r_s, interp="seg",
+                               seg_basis="cheb", seg_order=K - 1, seg_exact_order=True,
+                               dtype=torch.float32, device=cx.dev)
+        require(env.c_seg.shape[-2:] == (K, SEG_S)
+                and layouts[K] != layouts[int(rough0.c_seg.shape[-2])],
+                f"the rough K = {K} fit does not take another layout")
+        cases.append((f"segment_rough_rd_{layouts[K]}", env, s_rough, p0_small, SEG_X1, 2))
+    emit("seg_layouts", layouts=layouts, main_path=layouts[int(rough0.c_seg.shape[-2])],
+         compared=[int(e.c_seg.shape[-2]) for _, e, *_ in cases])
+    k_main = int(rough0.c_seg.shape[-2])
     for name, env, s, p0, x1, num_save in cases:
         h, sps, nseg = cx.plan(0.0, x1, num_save, s.dx)
         geom = (0.0, x1, h, sps, nseg)
@@ -969,7 +1049,8 @@ def seg_kernel_phase(cx):
         if name == "segment_rough_rd":
             b_ms, b_by = seg_fan_bound(res_k, env, sps)
             out = {"rays": int(p0.shape[0]), "steps": sps * nseg, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "kernel_event_ms": events_ms(
+                   "bound_ms": b_ms, "bound_by": b_by, "layout": layouts[k_main],
+                   "kernel_event_ms": events_ms(
                        lambda: stepper.trace_kernel(env, SRC_DEPTH, p0, geom, s), n=5)}
     return worst(errs), out
 
@@ -987,13 +1068,16 @@ def ens_tangent_phase(cx, mc):
     m, the solver's 2-save plan): the fan (16 × 512 angles over ±14°) and
     the Newton batch (16 × MC_BRACKET_CAP: each realization's arrivals
     from the main path's run and, in the unused lanes, the fan's last angle,
-    where the compaction's sentinel points them).  Each launch is held to
-    the plain version and each row to the final-state tangent kernel on its
-    realization alone, bit for bit.  The plain version runs once over both
-    shapes' candidates side by side (16 × 536): its arithmetic is
-    elementwise over candidates, so each one's numbers do not depend on its
-    neighbours, and the loop costs the same at any width (launch-bound).
-    Returns (worst errors, the rows for the times)."""
+    where the compaction's sentinel points them), timed and bounded at that
+    full shape.  Each launch is held to the plain version, and each row to
+    the final-state tangent kernel on its realization alone, bit for bit,
+    with every candidate but over ``CMP_X1`` at the same step (2 saves),
+    where the plain loop, whose time goes with its steps, takes under a third
+    of the time.  The plain version runs once over both shapes' candidates
+    side by side (16 × 536): its arithmetic is elementwise over candidates,
+    so each one's numbers do not depend on its neighbours, and the loop
+    costs the same at any width (launch-bound).  Returns (worst errors, the
+    rows for the times)."""
     from pygenray_tpu_torch.envdata import env_member
     from pygenray_tpu_torch.integrate import _ens_step_data, _trace_tangent_ens_impl
     from pygenray_tpu_torch.montecarlo import MC_BRACKET_CAP
@@ -1003,6 +1087,9 @@ def ens_tangent_phase(cx, mc):
     geom = (0.0, R_MAX, h, sps, nseg)
     s = cx.settings
     sd = _ens_step_data(env, geom, s)  # the rows, built once per call as the main path does
+    hc, spsc, nsegc = cx.plan(0.0, CMP_X1, 2, DX)
+    gcmp = (0.0, CMP_X1, hc, spsc, nsegc)
+    sdc = _ens_step_data(env, gcmp, s)
     newton = np.full((MC_E, MC_BRACKET_CAP), 14.0)
     M = mc["valid"].shape[1]
     newton[:, :M] = np.where(mc["valid"], mc["theta"], 14.0)
@@ -1013,14 +1100,14 @@ def ens_tangent_phase(cx, mc):
     outs = {}
     for label, _ in shapes:
         n0 = stepper.TANGENT_ENS_LAUNCHES
-        outs[label] = stepper.trace_tangent_ensemble_kernel(env, SRC_DEPTH, P[label], 1.0, geom, s,
-                                                            sd)
+        outs[label] = stepper.trace_tangent_ensemble_kernel(env, SRC_DEPTH, P[label], 1.0, gcmp, s,
+                                                            sdc)
         require(stepper.TANGENT_ENS_LAUNCHES == n0 + 1,
                 "the ensemble tangent kernel did not launch")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     both = _trace_tangent_ens_impl(env, SRC_DEPTH, torch.cat([P[lb] for lb, _ in shapes], 1), 1.0,
-                                   geom, s, sd)
+                                   gcmp, s, sdc)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     errs, rows, lo = [], {}, 0
@@ -1033,18 +1120,19 @@ def ens_tangent_phase(cx, mc):
         rows_equal = []
         for e in range(MC_E):
             b2 = stepper.trace_tangent_kernel(env_member(env, e), SRC_DEPTH, P[label][e], 1.0,
-                                              geom, s)
+                                              gcmp, s)
             rows_equal.append(all(bool(torch.equal(a[e], b)) for a, b in zip(out_k, b2)))
         emit("ens_tangent_rows_vs_tangent_kernel", case=label, rows_equal=rows_equal)
         require(all(rows_equal), f"{label}: an ensemble row differs from the tangent kernel on "
                 "its realization")
-        b_ms, b_by = ens_tangent_bound(out_k, env_member(env, 0), sps * nseg)
+        out_full = stepper.trace_tangent_ensemble_kernel(env, SRC_DEPTH, P[label], 1.0, geom, s, sd)
+        b_ms, b_by = ens_tangent_bound(out_full, env_member(env, 0), sps * nseg)
         rows[label] = {"realizations": MC_E, "candidates": m, "steps": sps * nseg,
                        "bound_ms": b_ms, "bound_by": b_by, "kernel_event_ms": events_ms(
                            lambda: stepper.trace_tangent_ensemble_kernel(
                                env, SRC_DEPTH, P[label], 1.0, geom, s, sd), n=10)}
     rows["plain_both"] = {"realizations": MC_E, "candidates": int(both[0].shape[1]),
-                          "steps": sps * nseg, "plain_ms": plain_ms}
+                          "steps": spsc * nsegc, "range_m": CMP_X1, "plain_ms": plain_ms}
     return {f: max(e[f] for e in errs) for f in TAN_FIELDS}, rows
 
 
@@ -1904,12 +1992,15 @@ def main() -> int:
              if "registers" in ln or "spill" in ln or ln.startswith("==")]
     emit("build", seconds=round(build_s, 3), libraries=[p.name for p in libs.values()],
          ptxas=ptxas)
+    phase_done("1-2 card and build")
 
     # ---- phase 3: kernel vs plain on the card -----------------------------
     cx = build_context(torch, pt, dev)
     cx.stepper, cx.smi = stepper, smi
     adjoint_context(cx)
+    phase_done("contexts")
     profiler_split_phase(cx)
+    phase_done("profiler_split")
     settings, env_h, env_c, env_b, env_s = cx.settings, cx.env_h, cx.env_c, cx.env_b, cx.env_s
     eq_angles, death_angles, z0_death = cx.eq_angles, cx.death_angles, cx.z0_death
     s_off = dataclasses.replace(settings, kahan=False, terminate_backwards=False)
@@ -1935,6 +2026,7 @@ def main() -> int:
             require({1, 2, 3} <= codes, f"{name}: death codes {sorted(codes)} lack 1, 2 or 3")
     h, sps, nseg = _plan(0.0, R_MAX, NUM_SAVE, DX)
     geom = (0.0, R_MAX, h, sps, nseg)
+    phase_done("3 fan kernel vs plain")
 
     # ---- phase 4: the main path at full size -------------------------------
     angles = np.linspace(-ANGLE_SPAN, ANGLE_SPAN, NUM_RAYS)
@@ -1980,6 +2072,8 @@ def main() -> int:
     emit("quick_start", rays=int(quick.ts.shape[0]), saves=200, default_device="cuda",
          launches=stepper.LAUNCHES - n0)
 
+    phase_done("4 main path")
+
     # ---- phase 5: times at the headline shape ------------------------------
     p0_h = torch.as_tensor(launch_p0(pt, env_h, angles), dtype=torch.float32, device=dev)
     s_plain = dataclasses.replace(settings, backend="ops")
@@ -2009,6 +2103,8 @@ def main() -> int:
          kernel_rays_per_s=NUM_RAYS / (ms_k / 1e3), plain_rays_per_s=NUM_RAYS / (ms_p / 1e3),
          kernel_runs_ms=[t * 1e3 for t in t_k], plain_runs_ms=[t * 1e3 for t in t_p])
 
+    phase_done("5 headline times")
+
     # ---- phase 6: the tangent kernel vs its plain version ------------------
     # final state only, on the eigenray solver's plan (2 saves); the same
     # fans as phase 3 plus BASELINE config 1's range-dependent field
@@ -2035,6 +2131,8 @@ def main() -> int:
             res_f = stepper.trace_kernel(env, z0, p0, g2, dataclasses.replace(s, kahan=False))
             lockstep(name, out_k, res_f)
     tan_err = {f: max(e[f] for e in tan_errs) for f in TAN_FIELDS}
+
+    phase_done("6 tangent kernel vs plain")
 
     # ---- phase 7: the range-dependent fan (B1c) ----------------------------
     h_rd, sps_rd, nseg_rd = _plan(0.0, R_MAX, NUM_SAVE, s_rd.dx)
@@ -2066,6 +2164,8 @@ def main() -> int:
          launches=launches_rd, max_travel_time_err_ms=err_rd_ms, budget_ms=ORACLE_BUDGET_MS)
     require(err_rd_ms <= ORACLE_BUDGET_MS, f"config 1 travel-time error {err_rd_ms:.4f} ms")
 
+    phase_done("7 config 1")
+
     # ---- phase 8: eigenrays at full width vs the JAX package ----------------
     cases = json.loads(str(np.load(EIGEN_JAX)["cases"]))
     envs = {"headline": env_h, "range_dependent": env_rd}
@@ -2080,6 +2180,8 @@ def main() -> int:
     emit("config2_vs_oracle", eigenrays=len(oracle_pair), max_travel_time_err_ms=err_pair_ms,
          budget_ms=ORACLE_BUDGET_MS)
     require(err_pair_ms <= ORACLE_BUDGET_MS, f"config 2 travel-time error {err_pair_ms:.4f} ms")
+
+    phase_done("8 eigenrays")
 
     # ---- phase 9: times of the new paths ------------------------------------
     # the tangent kernel at config 3's batch (its eigenray angles, the
@@ -2138,34 +2240,52 @@ def main() -> int:
                       "bound_by": rd_bound_by},
          eigenray_latency=latency)
 
+    phase_done("9 times")
+
     # ---- phases 10-15: the save-grid tangent kernel and the receiver side ----
     sv_err, sv_plain_8192_ms = save_tangent_phase(cx)
+    phase_done("10 save-grid tangent vs plain")
     autograd_phase(cx)
+    phase_done("11 autograd")
     rcv = receiver_paths_phase(cx)
+    phase_done("12 receiver paths")
     receiver_physics_phase(cx)
     receiver_vs_jax_phase(cx)
+    phase_done("13-14 receiver physics and vs JAX")
     sv, sv_err_full = save_tangent_times_phase(cx, rcv, sv_plain_8192_ms)
     sv_err = {f: max(e, sv_err_full[f]) for f, e in sv_err.items()}
+    phase_done("15 save-grid tangent times")
 
     # ---- phases 16-21: Monte Carlo --------------------------------------------
     mc_context(cx)
+    phase_done("16 Monte-Carlo ensembles")
     seg_err, seg_row = seg_kernel_phase(cx)
+    phase_done("17 segment mode vs plain")
     mc_paths, mc = mc_paths_phase(cx)
+    phase_done("18 Monte-Carlo paths")
     ens_err, ens_rows = ens_tangent_phase(cx, mc)
+    phase_done("19 ensemble tangent vs plain")
     mc_vs_jax_phase(cx)
     emit("times_mc", card=smi, segment_rough=seg_row, **ens_rows)
+    phase_done("20-21 Monte Carlo vs JAX")
 
     # ---- phases 22-26: the adjoint operators ---------------------------------
     coef_err, coef_times, b5_bench = coef_tangent_phase(cx)
+    phase_done("22 coefficient tangents vs plain")
     adj_paths = adjoint_paths_phase(cx, b5_bench)
+    phase_done("23 Jacobians")
     inv = inversion_phase(cx)
+    phase_done("24-25 inversion")
     adjoint_vs_jax_phase(cx)
+    phase_done("26 adjoint vs JAX")
 
     # ---- phase 27: random fields ----------------------------------------------
     random_field_phase(cx)
+    phase_done("27 random fields")
 
     err = worst(errs_all)
     launches_tan = eig["timefront"][1][1]
+    emit("phase_seconds", seconds=PHASE_S, total_s=round(time.perf_counter() - T_START, 2))
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "trace_fan_f32",
@@ -2231,10 +2351,14 @@ def main() -> int:
         "plain_ms_fan8192": sv["fan8192"]["plain_ms"],
         "bound_ms_fan8192": sv["fan8192"]["bound_ms"],
         "ms_tl_demo": sv["tl_demo"]["kernel_event_ms"],
+        # the TL demo's and the array response's plain comparisons run at
+        # every ray over about CMP_X1 (compared_at_*)
         "plain_ms_tl_demo": sv["tl_demo"]["plain_ms"],
+        "compared_at_tl_demo": sv["tl_demo"]["compared_at"],
         "bound_ms_tl_demo": sv["tl_demo"]["bound_ms"],
         "ms_array_response_eigenrays": sv["array_response_eigenrays"]["kernel_event_ms"],
         "plain_ms_array_response_eigenrays": sv["array_response_eigenrays"]["plain_ms"],
+        "compared_at_array_response_eigenrays": sv["array_response_eigenrays"]["compared_at"],
         "bound_ms_array_response_eigenrays": sv["array_response_eigenrays"]["bound_ms"],
     }, {
         # the fan kernel's segment mode at the rough trace_ensemble's shape
@@ -2252,6 +2376,7 @@ def main() -> int:
         "bound_by": seg_row["bound_by"],
         "library_ms": None,  # no single PyTorch call traces a ray fan
         "shape": f"{seg_row['rays']} rays x {seg_row['steps']} steps",
+        "layout": seg_row["layout"],  # where the step tables went (stepper.seg_layout)
     }, {
         # ms and bound at config 4b's Newton batch (the fan's below); the
         # plain version once over both shapes' candidates
@@ -2272,7 +2397,8 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call computes a ray tangent
         "shape": f"{MC_E} x {ens_rows['config4b_newton']['candidates']} candidates x "
                  f"{ens_rows['config4b_newton']['steps']} steps",
-        "plain_shape": f"{MC_E} x {ens_rows['plain_both']['candidates']} candidates",
+        "plain_shape": f"{MC_E} x {ens_rows['plain_both']['candidates']} candidates x "
+                       f"{ens_rows['plain_both']['steps']} steps",
         "ms_fan": ens_rows["config4b_fan"]["kernel_event_ms"],
         "bound_ms_fan": ens_rows["config4b_fan"]["bound_ms"],
         "bound_by_fan": ens_rows["config4b_fan"]["bound_by"],

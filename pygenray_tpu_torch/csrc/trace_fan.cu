@@ -57,8 +57,7 @@
 // builds no per-step rows (some twenty torch operations a call).
 // Segment mode, range-independent: the two (K, S) tables go to dynamic
 // shared memory (2 K S floats: 32 KB at K = 32, 96 KB at the ladder's top
-// K = 96, so the launch raises the block's dynamic limit above 48 KB), or
-// are read from device memory where they would not fit.
+// K = 96, so the launch raises the block's dynamic limit above 48 KB).
 // Segment mode, range-dependent (B1d): as the TPU kernel (`blend_station`)
 // and the plain version (`_blend_rows`, then a gather) do, the block blends
 // each step's four (K, S) tables once: c and dc/dz at the step's middle and
@@ -111,9 +110,7 @@
 #include <cstdint>
 
 #define TF_BLOCK 128
-#ifndef TF_SEG_BLOCK
 #define TF_SEG_BLOCK 512  // segment mode, range-dependent, step tables in shared memory
-#endif
 #define TF_MAX_K 256
 #define TF_MAX_KB 128
 #define TF_MAX_SEG_SMEM (200 * 1024)  // segment tables in shared memory, bytes (the card: 227 KB)
@@ -130,7 +127,6 @@ namespace {
 struct Params {
   int B, K, Kb, nseg, sps;
   int nr, tab_smem;     // range-dependent spectral: stations; tables in shared memory
-                        // (also segment, range-independent)
   int seg_double;       // segment, range-dependent: two buffers of step tables
   int bangle_cheb, term_back, kahan, any_x_oob;
   float x0, h;          // range origin and step [m]
@@ -148,14 +144,9 @@ struct Params {
 // (K, S) (ops/stepper.seg_layout mirrors it): two buffers of the step's
 // four (K, S) tables in shared memory when they fit, else one, else none
 __host__ int seg_layout(int K, int S) {
-  size_t step = 4 * (size_t)K * S * sizeof(float);
+  const size_t step = 4 * (size_t)K * S * sizeof(float);
   if (S != TF_SEG_S) return TF_SEG_PICK;
-#ifdef TF_SEG_VARIANT_RESIDENT
-  step += 6 * (size_t)K * S * sizeof(float);
-#endif
-#if !defined(TF_SEG_VARIANT_SINGLE) && !defined(TF_SEG_VARIANT_RESIDENT)
   if (2 * step <= TF_MAX_SEG_SMEM) return TF_SEG_DOUBLE;
-#endif
   if (step <= TF_MAX_SEG_SMEM) return TF_SEG_SINGLE;
   return TF_SEG_PICK;
 }
@@ -399,29 +390,6 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
   const bool dbl = SR || P.seg_double;  // BLK: step k + 1 blended while step k runs
   int nim = 0, ni1 = 0;  // BLK: the station intervals of the next step to blend
   float nwm = 0.0f, nw1 = 0.0f;
-#ifdef TF_SEG_VARIANT_RESIDENT
-  // measurement variant: the stations of the current interval (three, so
-  // that a step whose middle and end straddle a station needs no reload)
-  // staged in shared memory after the one buffer, blended from there
-  int sa = -1;
-  float* const s_st = s_tab + 4 * KS;
-#endif
-  auto seg_blend = [&](int im, float wm, int i1, float w1, float2* dst) {
-#ifdef TF_SEG_VARIANT_RESIDENT
-    if (sa < 0 || im < sa || i1 + 1 > sa + 2) {
-      sa = im;
-      const int n = (P.nr - sa < 3 ? P.nr - sa : 3) * KS;
-      for (int q = threadIdx.x; q < n; q += blockDim.x) {
-        s_st[q] = ccoef[(size_t)sa * KS + q];
-        s_st[3 * KS + q] = cpcoef[(size_t)sa * KS + q];
-      }
-      __syncthreads();
-    }
-    blend_seg_step(s_st, s_st + 3 * KS, KS, im - sa, wm, i1 - sa, w1, dst);
-#else
-    blend_seg_step(ccoef, cpcoef, KS, im, wm, i1, w1, dst);
-#endif
-  };
   auto next_iw = [&](int k) {  // BLK: step k's intervals, if there is a step k
     if (k < nsteps) {
       nim = st_i[2 * k + 1];
@@ -452,13 +420,13 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
     next_iw(1);
   } else if (SB) {
     // the launch range's tables (both halves of the first buffer)
-    seg_blend(st_i[0], st_w[0], st_i[0], st_w[0], s_seg);
+    blend_seg_step(ccoef, cpcoef, KS, st_i[0], st_w[0], st_i[0], st_w[0], s_seg);
   } else if (SEG == 0) {
     for (int k = threadIdx.x; k < P.K; k += blockDim.x) {
       s_c[k] = ccoef[k];
       s_cp[k] = cpcoef[k];
     }
-  } else if (!RD && P.tab_smem) {
+  } else if (!RD) {
     for (int j = threadIdx.x; j < KS; j += blockDim.x) {
       s_tab[j] = ccoef[j];
       s_tab[KS + j] = cpcoef[j];
@@ -479,7 +447,7 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
   // st_i[j] with weight st_w[j], range-dependent (j = 0 at the launch
   // range, 2k + 1 and 2k + 2 at step k's middle and end)
   auto seg_prof = [&](int j) -> Prof {
-    if (!RD) return P.tab_smem ? Prof{s_tab, s_tab + KS} : Prof{ccoef, cpcoef};
+    if (!RD) return {s_tab, s_tab + KS};
     const size_t st = (size_t)st_i[j] * KS;
     const float w = st_w[j];
     return {ccoef + st, cpcoef + st, ccoef + st + KS, cpcoef + st + KS, w, 1.0f - w};
@@ -510,7 +478,7 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
   }
   if (SB) {  // step 0's tables over the launch range's, once all have read those
     __syncthreads();
-    seg_blend(st_i[1], st_w[1], st_i[2], st_w[2], s_seg);
+    blend_seg_step(ccoef, cpcoef, KS, st_i[1], st_w[1], st_i[2], st_w[2], s_seg);
     next_iw(1);
     __syncthreads();
   }
@@ -523,7 +491,7 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
         if (SR)
           blend_step(ctab, cptab, K, nim, nwm, ni1, nw1, s_buf + ((k + 1) & 1) * 4 * K);
         else
-          seg_blend(nim, nwm, ni1, nw1, s_seg + ((k + 1) & 1) * 2 * KS);
+          blend_seg_step(ccoef, cpcoef, KS, nim, nwm, ni1, nw1, s_seg + ((k + 1) & 1) * 2 * KS);
         next_iw(k + 2);
       }
       if (!alive) {
@@ -633,7 +601,7 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
       if (BLK) {
         __syncthreads();  // step k's rows read (double: step k + 1's written)
         if (!dbl && k + 1 < nsteps) {  // one buffer: step k + 1's tables over step k's
-          seg_blend(nim, nwm, ni1, nw1, s_seg);
+          blend_seg_step(ccoef, cpcoef, KS, nim, nwm, ni1, nw1, s_seg);
           next_iw(k + 2);
           __syncthreads();
         }
@@ -664,17 +632,14 @@ int launch(const Params& P, cudaStream_t s, const float* p0, const float* z0,
   const int block = SB ? TF_SEG_BLOCK : TF_BLOCK;
   const dim3 grid((P.B + block - 1) / block);
   // segment mode, range-independent: both (K, S) tables in dynamic shared
-  // memory when they fit; range-dependent (SB): one or two buffers of a
+  // memory; range-dependent (SB): one or two buffers of a
   // step's four (K, S) tables; spectral, range-dependent: the station
   // tables (when they fit) and the step rows' double buffer; above 48 KB a
   // block may take it only once the limit is raised
   const size_t KS = (size_t)P.K * P.S;
   size_t smem = 0;
-  if (SEG && !RD && P.tab_smem) smem = 2 * KS * sizeof(float);
+  if (SEG && !RD) smem = 2 * KS * sizeof(float);
   if (SB) smem = (P.seg_double ? 2 : 1) * 4 * KS * sizeof(float);
-#ifdef TF_SEG_VARIANT_RESIDENT
-  if (SB) smem += 6 * KS * sizeof(float);
-#endif
   if (!SEG && RD) smem = (8 + (P.tab_smem ? 2 * (size_t)P.nr : 0)) * P.K * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -746,7 +711,8 @@ extern "C" int trace_fan_f32(const float* p0, const float* z0, const float* ccoe
       (rd && !(st_i && st_w && nr >= 2)))
     return (int)cudaErrorInvalidValue;
   if (seg == 0 && K > TF_MAX_K) return (int)cudaErrorInvalidValue;
-  if (seg != 0 && S < 1) return (int)cudaErrorInvalidValue;
+  if (seg != 0 && (S < 1 || (!rd && 2 * (size_t)K * S * sizeof(float) > TF_MAX_SEG_SMEM)))
+    return (int)cudaErrorInvalidValue;
   const int layout = seg && rd ? seg_layout(K, S) : TF_SEG_PICK;
   // the blended layouts read the station tables 16 bytes at a time
   if (layout != TF_SEG_PICK && (((uintptr_t)ccoef | (uintptr_t)cpcoef) & 15))
@@ -759,9 +725,7 @@ extern "C" int trace_fan_f32(const float* p0, const float* z0, const float* ccoe
   P.sps = sps;
   P.nr = rd ? nr : 1;
   // station tables in shared memory beside the step rows when they fit
-  // (spectral); the (K, S) tables when they fit (segment, range-independent)
-  P.tab_smem = seg ? 2 * (size_t)K * S * sizeof(float) <= TF_MAX_SEG_SMEM
-                   : (2 * (size_t)P.nr + 8) * K * sizeof(float) <= TF_MAX_SEG_SMEM;
+  P.tab_smem = (2 * (size_t)P.nr + 8) * K * sizeof(float) <= TF_MAX_SEG_SMEM;
   P.seg_double = layout == TF_SEG_DOUBLE;
   P.bangle_cheb = bangle_cheb;
   P.term_back = term_back;
@@ -789,7 +753,9 @@ extern "C" int trace_fan_f32(const float* p0, const float* z0, const float* ccoe
   if (seg == 1) return launch_seg<1>(K, rd, layout, TF_ARGS);
   if (seg == 2) return launch_seg<2>(K, rd, layout, TF_ARGS);
   if (use_pow)
-    return rd ? launch_k<true, true, 0, false>(K, TF_ARGS) : launch_k<true, false, 0, false>(K, TF_ARGS);
-  return rd ? launch_k<false, true, 0, false>(K, TF_ARGS) : launch_k<false, false, 0, false>(K, TF_ARGS);
+    return rd ? launch_k<true, true, 0, false>(K, TF_ARGS)
+              : launch_k<true, false, 0, false>(K, TF_ARGS);
+  return rd ? launch_k<false, true, 0, false>(K, TF_ARGS)
+            : launch_k<false, false, 0, false>(K, TF_ARGS);
 #undef TF_ARGS
 }

@@ -152,18 +152,19 @@ def kernel_supported(env, settings) -> bool:
     constant or Chebyshev bottom angle in float32 (the JAX package's
     ``pallas_supported``, ``ops/pallas_stepper.py:72``).  Its
     ``seg_kernel_ok`` caps a range-dependent segment fit at what the TPU's
-    vector memory holds; the CUDA kernel takes every fit size: a
-    range-dependent fit's step tables go where ``seg_layout`` says, a
-    range-independent fit's tables to shared memory when they fit
-    (``MAX_SEG_SMEM``), else they are read from device memory."""
+    vector memory holds; the CUDA kernel takes a range-dependent fit of any
+    size, its step tables where ``seg_layout`` says.  A range-independent
+    fit's two tables go to shared memory (``MAX_SEG_SMEM``)."""
     if tangent_supported(env, settings):
         return True
     if not _seg_mode(env, settings):
         return False
+    Ks, S = env.c_seg.shape[-2:]
     return (
         env.bangle_mode in ("const", "cheb")
         and env.dtype == torch.float32
         and env.bangle_cheb.shape[-1] <= MAX_KB
+        and (env.range_dependent or 8 * Ks * S <= MAX_SEG_SMEM)
     )
 
 

@@ -34,6 +34,7 @@ import pygenray_tpu as jp
 import pygenray_tpu_torch as tp
 from pygenray_tpu.integrate import SolverSettings as JSettings, _trace_impl as j_trace_impl
 from pygenray_tpu.ops.pallas_stepper import _launch_consts as j_launch_consts, trace_pallas
+from pygenray_tpu_torch.envdata import SEG_CHEB_LADDER, SEG_ORDER_LADDER
 from pygenray_tpu_torch.integrate import SolverSettings, _plan, _step_data, _trace_impl, trace
 from pygenray_tpu_torch.ops import stepper
 
@@ -49,12 +50,16 @@ def _geom():
     return (0.0, X1, h, sps, nseg)
 
 
+def _rd_args():
+    c, r, z = rough_tables(jp.munk_ssp, 1, 400, 4, X1)
+    return c[0], r, z, np.full(len(r), 4600.0), r
+
+
 def _env_pair(kind):
     z = np.linspace(0.0, 6000.0, 400)
     kw = {"interp": "seg"}
     if kind == "rd":
-        c, r, z = rough_tables(jp.munk_ssp, 1, 400, 4, X1)
-        c = c[0]
+        c, r, z = _rd_args()[:3]
     else:  # Munk, range-independent; "cheb" at the same 8 terms
         r, c = np.array([0.0, X1]), np.outer(np.ones(2), jp.munk_ssp(z))
         if kind == "cheb":
@@ -138,3 +143,61 @@ def test_segment_station_rows_reproduce_the_plain_blend(seg_runs):
         picks = (1.0 - w)[:, None, None] * tab[i] + w[:, None, None] * tab[i + 1]
         assert torch.equal(picks[0], blended[0])
         assert torch.equal(picks[1::2], blended[1]) and torch.equal(picks[2::2], blended[2])
+
+
+_CSRC = pathlib.Path(stepper.__file__).resolve().parent.parent / "csrc" / "trace_fan.cu"
+
+
+def _c_define(name):
+    """The value of ``#define name`` in the fan kernel's source."""
+    line = next(ln for ln in _CSRC.read_text().splitlines() if ln.startswith(f"#define {name} "))
+    return eval(line.split(None, 2)[2].split("//")[0])  # an integer expression
+
+
+def _with_terms(env, K):
+    """``env`` with zero (nr, K, S) segment tables: the fan kernel's support
+    and layout depend on the tables' shape, not their values."""
+    z = torch.zeros(env.c_seg.shape[0], K, env.c_seg.shape[-1])
+    return dataclasses.replace(env, c_seg=z, dcdz_seg=z.clone(),
+                               seg_basis="pow" if K <= max(SEG_ORDER_LADDER) + 1 else "cheb")
+
+
+def test_segment_layout_mirrors_the_launcher():
+    """``stepper.seg_layout`` is the launcher's choice (``seg_layout`` in
+    ``csrc/trace_fan.cu``) with the C limits: two buffers of a step's four
+    (K, S) float32 tables in shared memory when they fit the limit, else one,
+    else none (each pick blends from device memory); S other than 128 takes
+    none.  At S = 128 the ladders' K up to 48 take two, 64 and 96 one."""
+    assert stepper.MAX_SEG_SMEM == _c_define("TF_MAX_SEG_SMEM")
+    assert stepper.SEG_SMEM_S == _c_define("TF_SEG_S")
+    assert [_c_define(f"TF_SEG_{n.upper()}") for n in stepper.SEG_LAYOUTS] == [0, 1, 2]
+    for K in [o + 1 for o in SEG_ORDER_LADDER + SEG_CHEB_LADDER] + [128, 256]:
+        step = 4 * K * 128 * 4
+        want = ("double" if 2 * step <= stepper.MAX_SEG_SMEM else
+                "single" if step <= stepper.MAX_SEG_SMEM else "pick")
+        assert stepper.seg_layout(K, 128) == want, K
+        assert stepper.seg_layout(K, 64) == "pick"
+    assert [stepper.seg_layout(K, 128) for K in (8, 12, 16, 24, 32, 48, 64, 96, 128)] == (
+        ["double"] * 6 + ["single"] * 2 + ["pick"])
+
+
+def test_kernel_supported_takes_every_segment_rung():
+    """Every rung of both fit ladders, range-dependent, and an exact-order
+    fit above them go to the fan kernel (``seg_layout`` finds each a
+    place); what no layout takes is refused and the wrapper raises on it: a
+    range-independent fit whose two tables pass ``MAX_SEG_SMEM`` (256
+    terms), and a float64 fit."""
+    _, te = _env_pair("rd")
+    s = SolverSettings(dx=DX)
+    assert te.range_dependent and te.has_seg
+    for K in [o + 1 for o in SEG_ORDER_LADDER + SEG_CHEB_LADDER] + [256]:
+        env = _with_terms(te, K)
+        assert stepper.kernel_supported(env, s) and not stepper.tangent_supported(env, s), K
+    _, te_ri = _env_pair("pow")
+    assert stepper.kernel_supported(_with_terms(te_ri, 96), s)
+    te64 = tp.make_env_data(*_rd_args(), dtype=torch.float64, device="cpu", interp="seg")
+    assert te64.has_seg
+    for env in (_with_terms(te_ri, 256), te64):
+        assert not stepper.kernel_supported(env, s)
+        with pytest.raises(ValueError, match="not covered"):
+            stepper.trace_kernel(env, 1300.0, np.zeros(2), _geom(), s)

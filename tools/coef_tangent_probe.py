@@ -4,7 +4,7 @@ B1c), of the other coefficient-tangent launches and of the fan kernel's
 segment mode (B1d), for several checkouts of the port on one card, with
 the wrapper's share split off.
 
-    python3 tools/coef_tangent_probe.py [--variants] ROOT [ROOT ...]
+    python3 tools/coef_tangent_probe.py ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``pygenray_tpu_torch`` package (this
 repository's root, an unpacked ``git archive`` of another commit).  Every
@@ -45,6 +45,10 @@ The cases:
   fit of 32 terms the rough ensemble takes) at the shape the rough
   ``trace_ensemble`` gives each launch: 65,536 rays over ±15°, 100 km,
   dx = 100 m, 2 saves;
+* ``b1d_rough_narrow``: the same launch with every ray within ±0.01°, so
+  that a warp's rays pick the same segment column at each term (a
+  diagnostic: the shared-memory gathers of ``b1d_rough`` scatter over the
+  128 columns, and a scattered gather costs more wavefronts);
 * ``b1d_ri_pow``, ``b1d_ri_cheb``: the segment mode on a range-independent
   Munk fit (nz = 2048; basis "pow", 8 terms, and "cheb", 32 terms), 8,192
   rays over ±18° to 30 km, dx = 200 m, 10 saves (``chip_smoke.py``'s
@@ -60,11 +64,6 @@ The cases:
 The wrappers are called as a user calls them, without the per-step
 geometry an inversion builds once (``stepper.step_geometry``), so that one
 script times checkouts from before and after that argument.
-
-``--variants``: in a checkout whose ``csrc/trace_fan.cu`` has the segment
-mode's compile-time variants, also build that source with each variant's
-``-D`` flags (``SEG_VARIANTS``) and time ``b1d_rough`` through it, each held
-bit for bit to the checkout's own build.
 """
 
 from __future__ import annotations
@@ -78,38 +77,7 @@ import numpy as np
 
 SRC = 1300.0
 N_LAUNCH = 20
-# the segment mode's variants: the step tables' block size, one buffer at
-# every K, the current interval's stations staged in shared memory
-SEG_VARIANTS = {
-    "block256": ("-DTF_SEG_BLOCK=256",),
-    "single": ("-DTF_SEG_VARIANT_SINGLE",),
-    "single_block256": ("-DTF_SEG_VARIANT_SINGLE", "-DTF_SEG_BLOCK=256"),
-    "resident": ("-DTF_SEG_VARIANT_RESIDENT",),
-}
-
-
-def build_variants(root):
-    """Start one nvcc per variant of ``root``'s trace_fan.cu; returns
-    {name: (library path, process)} (nothing when the source has none)."""
-    import pathlib
-
-    from pygenray_tpu_torch.ops import _build
-
-    src = pathlib.Path(root) / "pygenray_tpu_torch" / "csrc" / "trace_fan.cu"
-    if "TF_SEG_VARIANT_RESIDENT" not in src.read_text():
-        return {}
-    out = pathlib.Path(root) / "pygenray_tpu_torch" / "_build" / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, flags in SEG_VARIANTS.items():
-        so = out / f"libtrace_fan_{name}.so"
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(so), str(src)]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    return procs
-
-
-def child(root, variants=False):
+def child(root):
     sys.path.insert(0, root)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -120,7 +88,6 @@ def child(root, variants=False):
     from pygenray_tpu_torch.ops import stepper
 
     dev = torch.device("cuda", 0)
-    var_builds = build_variants(root) if variants else {}
 
     def events(fn, n=N_LAUNCH, reps=5):
         fn()
@@ -236,7 +203,9 @@ def child(root, variants=False):
                              device=dev, interp="seg", seg_basis="cheb", seg_order=31,
                              seg_exact_order=True)
     s_r, g_r = pt.SolverSettings(dx=100.0), geom(100e3, 100.0)
-    p_r = p0_of(float(pt.munk_ssp(np.asarray([SRC]))[0]), np.linspace(-15.0, 15.0, 65_536))
+    c_r = float(pt.munk_ssp(np.asarray([SRC]))[0])
+    p_r = p0_of(c_r, np.linspace(-15.0, 15.0, 65_536))
+    p_n = p0_of(c_r, np.linspace(-0.01, 0.01, 65_536))
     # range-independent segment fits of Munk, as chip_smoke's seg_kernel_phase
     seg_ri = {}
     for basis in ("pow", "cheb"):
@@ -247,6 +216,8 @@ def child(root, variants=False):
 
     cases = {
         "b1d_rough": (lambda: stepper.trace_kernel(env_r, SRC, p_r, g_r, s_r), "trace_fan"),
+        "b1d_rough_narrow": (lambda: stepper.trace_kernel(env_r, SRC, p_n, g_r, s_r),
+                             "trace_fan"),
         "b1d_ri_pow": (lambda: stepper.trace_kernel(seg_ri["pow"][0], SRC, seg_ri["pow"][1], g_ri,
                                                     s), "trace_fan"),
         "b1d_ri_cheb": (lambda: stepper.trace_kernel(seg_ri["cheb"][0], SRC, seg_ri["cheb"][1],
@@ -266,24 +237,6 @@ def child(root, variants=False):
     out["b2_fan8192"] = measure(lambda: stepper.trace_tangent_kernel(env, SRC, p8, 1.0, g, s),
                                 "trace_tangent")
     out["b1d_rough"]["seg_terms"] = int(env_r.c_seg.shape[-2])
-    if var_builds:
-        ref = stepper.trace_kernel(env_r, SRC, p_r, g_r, s_r)
-        own = stepper._kernel_fn("trace_fan_f32")
-        for name, (so, proc) in var_builds.items():
-            log = proc.communicate()[0]
-            if proc.returncode:
-                raise RuntimeError(f"variant {name} did not build:\n{log}")
-            fn = getattr(__import__("ctypes").CDLL(str(so)), "trace_fan_f32")
-            fn.argtypes, fn.restype = own.argtypes, own.restype
-            stepper._FNS["trace_fan_f32"] = fn
-            got = stepper.trace_kernel(env_r, SRC, p_r, g_r, s_r)
-            equal = all(bool(torch.equal(getattr(got, f), getattr(ref, f))) for f in
-                        ("ts", "zs", "ps", "n_surf", "n_bott", "death_code", "alive_save"))
-            out[f"b1d_rough_{name}"] = {**measure(lambda: stepper.trace_kernel(
-                env_r, SRC, p_r, g_r, s_r), "trace_fan"), "equal": equal,
-                "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln
-                          or "spill" in ln][:80]}
-        stepper._FNS["trace_fan_f32"] = own
     out["inversion_solve"] = inversion_solve(torch, pt, dev, z3, r3, env3, s3)
     print(json.dumps(out), flush=True)
 
@@ -333,16 +286,14 @@ def inversion_solve(torch, pt, dev, z, r, env0, s, iters=150, lr=0.03, lam=1e-10
 
 
 def main():
-    if len(sys.argv) >= 3 and sys.argv[1] == "--child":
-        child(sys.argv[2], "--variants" in sys.argv[3:])
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
+        child(sys.argv[2])
         return 0
-    args = [a for a in sys.argv[1:] if a != "--variants"]
-    if not args:
+    if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    extra = ["--variants"] if "--variants" in sys.argv[1:] else []
-    for root in args:
-        rc = subprocess.run([sys.executable, __file__, "--child", root, *extra]).returncode
+    for root in sys.argv[1:]:
+        rc = subprocess.run([sys.executable, __file__, "--child", root]).returncode
         if rc:
             return rc
     return 0
