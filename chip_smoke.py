@@ -148,11 +148,15 @@ SEG_X1 = 30e3  # range of the segment-mode comparisons other than the rough shap
 # about the range of the plain comparisons that run shorter than the main
 # path's shape (B3 at the TL demo and the array response, B4 at config 4b)
 CMP_X1 = 30e3
+# the tangent kernel's fans compared over CMP_X1: no main path launches
+# them at 100 km (the eigenray solves run the Horner and config 1 fields)
+TAN_SHORT = ("clenshaw", "horner_curved_bottom")
 SEG_S = 128  # segments of a segment fit (ops/seg.py SEG_S)
 # terms of the rough exact-order fits whose step tables take the layouts the
 # main path's 32 does not (stepper.seg_layout): one buffer, none
 SEG_OTHER_K = (96, 128)
 SEG_SMALL_RAYS = 4096
+SEG_OTHER_X1 = 10e3  # their range: across the rough field's first station
 # Monte-Carlo eigenrays, the port's one-shot Newton against the JAX
 # package's regula falsi (tests/test_montecarlo.py:331-337)
 MC_ANGLE_DEG = 0.05
@@ -554,11 +558,13 @@ def compare_save_tangent(name, seed_scale, out_k, out_p):
 
 def save_tangent_phase(cx):
     """The save-grid tangent kernel against its plain version on every
-    tangent fan with three seeds (all at full width; the depth and mixed
-    seeds over half the range), and in lockstep with the other kernels:
-    its last row is the final-state tangent kernel's output, its primal the
-    fan kernel's save grid without Kahan.  Returns (worst errors, plain ms
-    of the first case)."""
+    tangent fan with three seeds (all at full width, over about ``CMP_X1``
+    at the fan's step and save spacing, ``cut_plan``: no main path runs
+    these fans, and the plain loop takes ~25 ms a step on the card, whatever
+    the fan's width), and in lockstep with the other kernels: its last row
+    is the final-state tangent kernel's output, its primal the fan kernel's
+    save grid without Kahan.  Returns (worst errors, plain ms of the first
+    case)."""
     from pygenray_tpu_torch.integrate import _trace_tangent_save_impl
 
     torch, stepper = cx.torch, cx.stepper
@@ -566,15 +572,10 @@ def save_tangent_phase(cx):
     for name, env, ang, z0, x1, s in cx.tan_cases:
         p0, z0 = on_card(cx, launch_p0(cx.pt, env, ang)), on_card(cx, z0)
         mixed = on_card(cx, np.linspace(0.5, 1.5, len(ang)))
+        geom = cut_plan(x1, NUM_SAVE, s.dx)[0]
         for label, dp0, dz0, scale in (("dp0", 1.0, 0.0, 1.0),
                                        ("dz0", 0.0, 1.0, Z0_SEED_SCALE),
                                        ("mixed", mixed, -0.7, 1.5 + 0.7 * Z0_SEED_SCALE)):
-            # the unit p0 seed over the whole range; the other two seeds over
-            # its first half (the plain version takes ~25 ms a step on the
-            # card, whatever the fan's width)
-            part = 1 if label == "dp0" else 2
-            h, sps, nseg = cx.plan(0.0, x1 / part, NUM_SAVE // part, s.dx)
-            geom = (0.0, x1 / part, h, sps, nseg)
             out_k = stepper.trace_tangent_save_kernel(env, z0, p0, dp0, geom, s, dz0=dz0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -857,14 +858,16 @@ def receiver_vs_jax_phase(cx):
 
 
 def cut_plan(x1, num_save, dx):
-    """The plan of a comparison cut to about ``CMP_X1`` at the same step and
-    save spacing as the plan of ``(x1, num_save, dx)``: ``(geom, saves)``."""
+    """The plan of a comparison cut to about ``CMP_X1`` (no longer than
+    ``x1``) at the same step and save spacing as the plan of ``(x1,
+    num_save, dx)``: ``(geom, saves)``."""
     from pygenray_tpu_torch.integrate import _plan
 
     seg_len = x1 / (num_save - 1)
     nseg = max(1, round(CMP_X1 / seg_len))
-    h, sps, nseg = _plan(0.0, nseg * seg_len, nseg + 1, dx)
-    return (0.0, nseg * seg_len, h, sps, nseg), nseg + 1
+    if nseg >= num_save - 1:
+        return (0.0, x1, *_plan(0.0, x1, num_save, dx)), num_save
+    return (0.0, nseg * seg_len, *_plan(0.0, nseg * seg_len, nseg + 1, dx)), nseg + 1
 
 
 def save_tangent_times_phase(cx, rcv, plain_8192_ms):
@@ -986,7 +989,7 @@ def seg_kernel_phase(cx):
     gives each launch: 65,536 rays to 100 km, dx = 100 m, 2 saves; and the
     layouts the main path does not take, on exact-order fits of the same
     realization: 96 terms (one buffer) and 128 (no buffer: each pick blends
-    from device memory), 4,096 rays to 30 km.  First a line of the layout
+    from device memory), 4,096 rays to 10 km.  First a line of the layout
     the launcher (``trace_fan_seg_layout``) takes for each K of both fit
     ladders and for 128, which must be ``stepper.seg_layout``'s.  Returns
     (worst errors, the rough case's row for the times: kernel and plain ms,
@@ -1027,7 +1030,8 @@ def seg_kernel_phase(cx):
         require(env.c_seg.shape[-2:] == (K, SEG_S)
                 and layouts[K] != layouts[int(rough0.c_seg.shape[-2])],
                 f"the rough K = {K} fit does not take another layout")
-        cases.append((f"segment_rough_rd_{layouts[K]}", env, s_rough, p0_small, SEG_X1, 2))
+        cases.append((f"segment_rough_rd_{layouts[K]}", env, s_rough, p0_small, SEG_OTHER_X1,
+                      2))
     emit("seg_layouts", layouts=layouts, main_path=layouts[int(rough0.c_seg.shape[-2])],
          compared=[int(e.c_seg.shape[-2]) for _, e, *_ in cases])
     k_main = int(rough0.c_seg.shape[-2])
@@ -2113,6 +2117,8 @@ def main() -> int:
             "config 1 env is not covered by the tangent kernels")
     tan_errs, tan_plain_ms = [], {}
     for name, env, ang, z0, x1, s in tan_cases:
+        if name in TAN_SHORT:
+            x1 = CMP_X1
         h2, sps2, nseg2 = _plan(0.0, x1, 2, s.dx)
         g2 = (0.0, x1, h2, sps2, nseg2)
         p0 = torch.as_tensor(launch_p0(pt, env, ang), dtype=torch.float32, device=dev)
@@ -2348,7 +2354,8 @@ def main() -> int:
         "bound_by": sv["headline"]["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a ray tangent
         "ms_fan8192": sv["fan8192"]["kernel_event_ms"],
-        "plain_ms_fan8192": sv["fan8192"]["plain_ms"],
+        "plain_ms_fan8192": sv["fan8192"]["plain_ms"],  # compared over about CMP_X1
+        "plain_range_m_fan8192": cut_plan(R_MAX, NUM_SAVE, DX)[0][1],
         "bound_ms_fan8192": sv["fan8192"]["bound_ms"],
         "ms_tl_demo": sv["tl_demo"]["kernel_event_ms"],
         # the TL demo's and the array response's plain comparisons run at
