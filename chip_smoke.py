@@ -146,7 +146,8 @@ MC_RAYS = 65_536
 ROUGH_DX = 100.0
 SEG_X1 = 30e3  # range of the segment-mode comparisons other than the rough shape
 # about the range of the plain comparisons that run shorter than the main
-# path's shape (B3 at the TL demo and the array response, B4 at config 4b)
+# path's shape (B3 at the TL demo and the array response, B1d at the rough
+# ensemble's)
 CMP_X1 = 30e3
 # the tangent kernel's fans compared over CMP_X1: no main path launches
 # them at 100 km (the eigenray solves run the Horner and config 1 fields)
@@ -157,6 +158,13 @@ SEG_S = 128  # segments of a segment fit (ops/seg.py SEG_S)
 SEG_OTHER_K = (96, 128)
 SEG_SMALL_RAYS = 4096
 SEG_OTHER_X1 = 10e3  # their range: across the rough field's first station
+# terms of config 4's exact-order fits on which the ensemble tangent kernel
+# is held at a K other than the main path's 64: one compiled fixed, one at
+# run time (stepper.ens_layout); compared with every Newton candidate over
+# ENS_OTHER_X1
+ENS_OTHER_K = (96, 128)
+ENS_OTHER_X1 = 10e3
+ENS_LAYOUT = "one thread a ray"  # csrc/trace_tangent_ens.cu
 # Monte-Carlo eigenrays, the port's one-shot Newton against the JAX
 # package's regula falsi (tests/test_montecarlo.py:331-337)
 MC_ANGLE_DEG = 0.05
@@ -949,6 +957,7 @@ def mc_context(cx):
     torch, pt = cx.torch, cx.pt
     t0 = time.perf_counter()
     c, r, z = perturbed_munk_tables(MC_E, r_max=R_MAX, nr=32, nz=1024, seed=0)
+    cx.mc_tables = (c, r, z)
     cx.env_mc = pt.make_env_ensemble(c, r, z, np.full(32, 5000.0), r, dtype=torch.float32,
                                      device=cx.dev)
     t1 = time.perf_counter()
@@ -989,7 +998,10 @@ def seg_kernel_phase(cx):
     gives each launch: 65,536 rays to 100 km, dx = 100 m, 2 saves; and the
     layouts the main path does not take, on exact-order fits of the same
     realization: 96 terms (one buffer) and 128 (no buffer: each pick blends
-    from device memory), 4,096 rays to 10 km.  First a line of the layout
+    from device memory), 4,096 rays to 10 km.  The rough shape is held to
+    the plain version with every ray over ``CMP_X1`` at the same step (2
+    saves), where the plain loop, whose time goes with its steps, takes under
+    a third of the time, and timed and bounded in full.  First a line of the layout
     the launcher (``trace_fan_seg_layout``) takes for each K of both fit
     ladders and for 128, which must be ``stepper.seg_layout``'s.  Returns
     (worst errors, the rough case's row for the times: kernel and plain ms,
@@ -1019,7 +1031,7 @@ def seg_kernel_phase(cx):
         cases.append((f"segment_{basis}", env, cx.settings, p0_eq(env), SEG_X1, 10))
     s_rough = pt.SolverSettings(dx=ROUGH_DX)
     rough0 = env_member(cx.env_sg, 0)
-    cases.append(("segment_rough_rd", rough0, s_rough, on_card(cx, mc_launch_p0(cx)), R_MAX, 2))
+    cases.append(("segment_rough_rd", rough0, s_rough, on_card(cx, mc_launch_p0(cx)), CMP_X1, 2))
     c, r_s, z_s = rough_field().rough_tables(pt.munk_ssp, 1)
     p0_small = on_card(cx, np.sin(np.radians(-np.linspace(-ANGLE_SPAN, ANGLE_SPAN, SEG_SMALL_RAYS)))
                        / cx.c_src_mc)
@@ -1051,11 +1063,15 @@ def seg_kernel_phase(cx):
         plain_ms = (time.perf_counter() - t0) * 1e3
         errs.append(compare(f"{name}_K{int(env.c_seg.shape[-2])}", res_k, res_p))
         if name == "segment_rough_rd":
-            b_ms, b_by = seg_fan_bound(res_k, env, sps)
+            h, sps, nseg = cx.plan(0.0, R_MAX, num_save, s.dx)
+            g_full = (0.0, R_MAX, h, sps, nseg)
+            b_ms, b_by = seg_fan_bound(stepper.trace_kernel(env, SRC_DEPTH, p0, g_full, s), env,
+                                       sps)
             out = {"rays": int(p0.shape[0]), "steps": sps * nseg, "plain_ms": plain_ms,
+                   "compared_at": {"range_m": x1, "steps": geom[3] * geom[4]},
                    "bound_ms": b_ms, "bound_by": b_by, "layout": layouts[k_main],
                    "kernel_event_ms": events_ms(
-                       lambda: stepper.trace_kernel(env, SRC_DEPTH, p0, geom, s), n=5)}
+                       lambda: stepper.trace_kernel(env, SRC_DEPTH, p0, g_full, s), n=5)}
     return worst(errs), out
 
 
@@ -1066,77 +1082,140 @@ def mc_launch_p0(cx):
     return np.sin(np.radians(-np.linspace(-ANGLE_SPAN, ANGLE_SPAN, MC_RAYS))) / cx.c_src_mc
 
 
-def ens_tangent_phase(cx, mc):
-    """The ensemble tangent kernel at the two shapes config 4b's
-    mc_eigenray_times gives it, over all 16 realizations (100 km, dx = 200
-    m, the solver's 2-save plan): the fan (16 × 512 angles over ±14°) and
-    the Newton batch (16 × MC_BRACKET_CAP: each realization's arrivals
-    from the main path's run and, in the unused lanes, the fan's last angle,
-    where the compaction's sentinel points them), timed and bounded at that
-    full shape.  Each launch is held to the plain version, and each row to
-    the final-state tangent kernel on its realization alone, bit for bit,
-    with every candidate but over ``CMP_X1`` at the same step (2 saves),
-    where the plain loop, whose time goes with its steps, takes under a third
-    of the time.  The plain version runs once over both shapes' candidates
-    side by side (16 × 536): its arithmetic is elementwise over candidates,
-    so each one's numbers do not depend on its neighbours, and the loop
-    costs the same at any width (launch-bound).  Returns (worst errors, the
-    rows for the times)."""
-    from pygenray_tpu_torch.envdata import env_member
-    from pygenray_tpu_torch.integrate import _ens_step_data, _trace_tangent_ens_impl
+def config4b_call(cx):
+    """BASELINE config 4b's ``mc_eigenray_times`` (bench.py:537-556):
+    512-angle ±14° fans over config 4's ensemble, receiver at 1300 m, 100
+    km, ztol = 1 m."""
+    return cx.pt.mc_eigenray_times(cx.env_mc, np.linspace(-14.0, 14.0, 512), 1300.0, SRC_DEPTH,
+                                   0.0, R_MAX, ztol=1.0, settings=cx.pt.SolverSettings(dx=DX))
+
+
+def ens_shapes(cx, mc):
+    """The launch parameters of the two shapes config 4b's call gives the
+    ensemble tangent kernel, 16 realizations each: the fan (512 angles over
+    ±14°) and the Newton batch (MC_BRACKET_CAP candidates: each
+    realization's arrivals in ``mc`` and, in the unused lanes, the fan's
+    last angle, where the compaction's sentinel points them)."""
     from pygenray_tpu_torch.montecarlo import MC_BRACKET_CAP
 
-    torch, stepper, env = cx.torch, cx.stepper, cx.env_mc
-    h, sps, nseg = cx.plan(0.0, R_MAX, 2, DX)
-    geom = (0.0, R_MAX, h, sps, nseg)
-    s = cx.settings
-    sd = _ens_step_data(env, geom, s)  # the rows, built once per call as the main path does
-    hc, spsc, nsegc = cx.plan(0.0, CMP_X1, 2, DX)
-    gcmp = (0.0, CMP_X1, hc, spsc, nsegc)
-    sdc = _ens_step_data(env, gcmp, s)
     newton = np.full((MC_E, MC_BRACKET_CAP), 14.0)
     M = mc["valid"].shape[1]
     newton[:, :M] = np.where(mc["valid"], mc["theta"], 14.0)
     shapes = (("config4b_fan", np.broadcast_to(np.linspace(-14.0, 14.0, 512), (MC_E, 512))),
               ("config4b_newton", newton))
-    P = {label: on_card(cx, np.sin(np.radians(-np.asarray(ang))) / cx.c_src_mc)
-         for label, ang in shapes}
+    return {label: on_card(cx, np.sin(np.radians(-np.asarray(ang))) / cx.c_src_mc)
+            for label, ang in shapes}
+
+
+def ens_rows_equal(cx, label, env, P, geom, out_k):
+    """Each (realization) row of an ensemble launch against the final-state
+    tangent kernel on that realization alone, bit for bit."""
+    from pygenray_tpu_torch.envdata import env_member
+
+    rows_equal = []
+    for e in range(env.c.shape[0]):
+        b2 = cx.stepper.trace_tangent_kernel(env_member(env, e), SRC_DEPTH, P[e], 1.0, geom,
+                                             cx.settings)
+        rows_equal.append(all(bool(cx.torch.equal(a[e], b)) for a, b in zip(out_k, b2)))
+    emit("ens_tangent_rows_vs_tangent_kernel", case=label, rows_equal=rows_equal)
+    require(all(rows_equal), f"{label}: an ensemble row differs from the tangent kernel on its "
+            "realization")
+
+
+def ens_tangent_phase(cx, mc):
+    """The ensemble tangent kernel at the two shapes config 4b's
+    mc_eigenray_times gives it (``ens_shapes``, from the main path's run),
+    over all 16 realizations (100 km, dx = 200 m, the solver's 2-save plan:
+    500 steps), timed, bounded and compared at that full shape: each launch
+    held to the plain version, and each row to the final-state tangent
+    kernel on its realization alone, bit for bit.  The plain version runs
+    once over both shapes' candidates side by side (16 × 536): its
+    arithmetic is elementwise over candidates, so each one's numbers do not
+    depend on its neighbours, and the loop costs the same at any width
+    (launch-bound).  Then the kernel at two other K, on exact-order fits of
+    config 4's tables (``ENS_OTHER_K``: one compiled fixed, one at run time)
+    with every Newton candidate over ``ENS_OTHER_X1``, held alike; first a
+    line of the layout the launcher (``trace_tangent_ens_layout``) takes
+    for each K of the spectral ladder and these, which must be
+    ``stepper.ens_layout``'s.  Returns (worst errors, the rows for the
+    times)."""
+    import ctypes
+
+    from pygenray_tpu_torch.envdata import env_member
+    from pygenray_tpu_torch.integrate import _ens_step_data, _trace_tangent_ens_impl
+    from pygenray_tpu_torch.ops import _build
+
+    torch, pt, stepper, env, s = cx.torch, cx.pt, cx.stepper, cx.env_mc, cx.settings
+    h, sps, nseg = cx.plan(0.0, R_MAX, 2, DX)
+    geom = (0.0, R_MAX, h, sps, nseg)
+    sd = _ens_step_data(env, geom, s)  # the rows, built once per call as the main path does
+    tables = (*sd.prof_ms, *sd.prof_1s)
+    lay = _build.load("trace_tangent_ens").trace_tangent_ens_layout
+    lay.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    layouts = {}
+    for K in stepper.ENS_FIXED_K + ENS_OTHER_K + (31,):
+        for label, ts in (("aligned", tables), ("offset", [t.view(-1)[1:] for t in tables])):
+            bits = lay(K, *(t.data_ptr() for t in ts))
+            got = ("fixed" if bits & 1 else "run-time", 16 if bits & 2 else 4)
+            require(got == stepper.ens_layout(K, ts),
+                    f"K = {K} ({label}): the launcher takes {got}, stepper.ens_layout says "
+                    f"{stepper.ens_layout(K, ts)}")
+            layouts[f"{K}_{label}"] = got
+    k_main = int(env.c_cheb.shape[-1])
+    emit("ens_layouts", layouts=layouts, main_path=stepper.ens_layout(k_main, tables))
+    P = ens_shapes(cx, mc)
     outs = {}
-    for label, _ in shapes:
+    for label in P:
         n0 = stepper.TANGENT_ENS_LAUNCHES
-        outs[label] = stepper.trace_tangent_ensemble_kernel(env, SRC_DEPTH, P[label], 1.0, gcmp, s,
-                                                            sdc)
+        outs[label] = stepper.trace_tangent_ensemble_kernel(env, SRC_DEPTH, P[label], 1.0, geom, s,
+                                                            sd)
         require(stepper.TANGENT_ENS_LAUNCHES == n0 + 1,
                 "the ensemble tangent kernel did not launch")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    both = _trace_tangent_ens_impl(env, SRC_DEPTH, torch.cat([P[lb] for lb, _ in shapes], 1), 1.0,
-                                   gcmp, s, sdc)
+    both = _trace_tangent_ens_impl(env, SRC_DEPTH, torch.cat(list(P.values()), 1), 1.0, geom, s,
+                                   sd)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     errs, rows, lo = [], {}, 0
-    for label, _ in shapes:
+    for label in P:
         out_k, m = outs[label], P[label].shape[1]
         out_p = [a[:, lo:lo + m] for a in both]
         lo += m
         errs.append(compare_tangent(label, [a.reshape(-1) for a in out_k],
                                     [a.reshape(-1) for a in out_p]))
-        rows_equal = []
-        for e in range(MC_E):
-            b2 = stepper.trace_tangent_kernel(env_member(env, e), SRC_DEPTH, P[label][e], 1.0,
-                                              gcmp, s)
-            rows_equal.append(all(bool(torch.equal(a[e], b)) for a, b in zip(out_k, b2)))
-        emit("ens_tangent_rows_vs_tangent_kernel", case=label, rows_equal=rows_equal)
-        require(all(rows_equal), f"{label}: an ensemble row differs from the tangent kernel on "
-                "its realization")
-        out_full = stepper.trace_tangent_ensemble_kernel(env, SRC_DEPTH, P[label], 1.0, geom, s, sd)
-        b_ms, b_by = ens_tangent_bound(out_full, env_member(env, 0), sps * nseg)
+        ens_rows_equal(cx, label, env, P[label], geom, out_k)
+        b_ms, b_by = ens_tangent_bound(out_k, env_member(env, 0), sps * nseg)
         rows[label] = {"realizations": MC_E, "candidates": m, "steps": sps * nseg,
                        "bound_ms": b_ms, "bound_by": b_by, "kernel_event_ms": events_ms(
                            lambda: stepper.trace_tangent_ensemble_kernel(
                                env, SRC_DEPTH, P[label], 1.0, geom, s, sd), n=10)}
     rows["plain_both"] = {"realizations": MC_E, "candidates": int(both[0].shape[1]),
-                          "steps": spsc * nsegc, "range_m": CMP_X1, "plain_ms": plain_ms}
+                          "steps": sps * nseg, "range_m": R_MAX, "plain_ms": plain_ms}
+    rows["k_layout"] = stepper.ens_layout(k_main, tables)
+    # the other K: every Newton candidate over ENS_OTHER_X1
+    c, r, z = cx.mc_tables
+    h10, sps10, nseg10 = cx.plan(0.0, ENS_OTHER_X1, 2, DX)
+    g10 = (0.0, ENS_OTHER_X1, h10, sps10, nseg10)
+    Pn = P["config4b_newton"]
+    for K in ENS_OTHER_K:
+        env_k = pt.make_env_ensemble(c, r, z, np.full(32, 5000.0), r, dtype=torch.float32,
+                                     device=cx.dev, cheb_order=K - 1, cheb_exact_order=True)
+        require(env_k.has_cheb and env_k.c_cheb.shape[-1] == K
+                and stepper.tangent_supported(env_member(env_k, 0), s),
+                f"config 4's K = {K} fit is not a tangent-kernel field")
+        sd_k = _ens_step_data(env_k, g10, s)
+        label = f"config4b_newton_K{K}"
+        n0 = stepper.TANGENT_ENS_LAUNCHES
+        out_k = stepper.trace_tangent_ensemble_kernel(env_k, SRC_DEPTH, Pn, 1.0, g10, s, sd_k)
+        require(stepper.TANGENT_ENS_LAUNCHES == n0 + 1, f"{label}: the kernel did not launch")
+        out_p = _trace_tangent_ens_impl(env_k, SRC_DEPTH, Pn, 1.0, g10, s, sd_k)
+        errs.append(compare_tangent(label, [a.reshape(-1) for a in out_k],
+                                    [a.reshape(-1) for a in out_p]))
+        ens_rows_equal(cx, label, env_k, Pn, g10, out_k)
+        rows[label] = {"realizations": MC_E, "candidates": int(Pn.shape[1]),
+                       "steps": sps10 * nseg10, "range_m": ENS_OTHER_X1,
+                       "layout": stepper.ens_layout(K, (*sd_k.prof_ms, *sd_k.prof_1s))}
     return {f: max(e[f] for e in errs) for f in TAN_FIELDS}, rows
 
 
@@ -1198,9 +1277,7 @@ def mc_paths_phase(cx):
     require(res.ts.shape == (MC_E, MC_RAYS, 2) and bool(torch.isfinite(res.ts[alive]).all())
             and int(alive.sum()) >= 0.999 * MC_E * MC_RAYS, "config 4: non-finite or lost rays")
 
-    fan = np.linspace(-14.0, 14.0, 512)
-    mc, n = drive("config4b", lambda: pt.mc_eigenray_times(
-        cx.env_mc, fan, 1300.0, SRC_DEPTH, 0.0, R_MAX, ztol=1.0, settings=s4), runs=5)
+    mc, n = drive("config4b", lambda: config4b_call(cx), runs=5)
     v = mc["valid"]
     emit("config4b_mc_eigenray_times", card=cx.smi, path=mc["path"], arrivals=int(v.sum()),
          arrivals_per_realization=v.sum(axis=1).tolist(),
@@ -1569,12 +1646,15 @@ def inversion_start(cx):
 
 def profiler_split_phase(cx):
     """Where the range-dependent launches' time goes (``split_ms``): the
-    fan kernel at BASELINE config 1, B6 at bench.py's 2D Jacobian, and B6
-    and the 2-save fan launch at the inversion step's shapes (on the
-    inversion's starting field), early in the run: late in a long run a
-    profiling session has come back without the kernel's rows.  Sets
+    fan kernel at BASELINE config 1, B6 at bench.py's 2D Jacobian, B6 and
+    the 2-save fan launch at the inversion step's shapes (on the
+    inversion's starting field), and the ensemble tangent kernel at config
+    4b's two shapes (``ens_shapes``, from one config 4b call; the step rows
+    built once, as the call builds them), early in the run: late in a long
+    run a profiling session has come back without the kernel's rows.  Sets
     ``cx.splits``."""
     from pygenray_tpu_torch.adjoint import _CoefTimes, _directions
+    from pygenray_tpu_torch.integrate import _ens_step_data
 
     torch, st = cx.torch, cx.stepper
     h, sps, nseg = cx.plan(0.0, R_MAX, NUM_SAVE, cx.s_rd.dx)
@@ -1598,6 +1678,11 @@ def profiler_split_phase(cx):
         "fan_inversion": split_ms(lambda: st.trace_kernel(env_k, SRC_DEPTH, op.p0, op.geom, s,
                                                           geo), "trace_fan"),
     }
+    g4 = (0.0, R_MAX, *cx.plan(0.0, R_MAX, 2, DX))
+    sd4 = _ens_step_data(cx.env_mc, g4, cx.settings)
+    for label, p0_4 in ens_shapes(cx, config4b_call(cx)).items():
+        cx.splits[label] = split_ms(lambda p=p0_4: st.trace_tangent_ensemble_kernel(
+            cx.env_mc, SRC_DEPTH, p, 1.0, g4, cx.settings, sd4), "tangent_ens")
     emit("profiler_split", card=cx.smi, **cx.splits)
 
 
@@ -2002,7 +2087,8 @@ def main() -> int:
     cx = build_context(torch, pt, dev)
     cx.stepper, cx.smi = stepper, smi
     adjoint_context(cx)
-    phase_done("contexts")
+    mc_context(cx)
+    phase_done("contexts and Monte-Carlo ensembles")
     profiler_split_phase(cx)
     phase_done("profiler_split")
     settings, env_h, env_c, env_b, env_s = cx.settings, cx.env_h, cx.env_c, cx.env_b, cx.env_s
@@ -2263,8 +2349,6 @@ def main() -> int:
     phase_done("15 save-grid tangent times")
 
     # ---- phases 16-21: Monte Carlo --------------------------------------------
-    mc_context(cx)
-    phase_done("16 Monte-Carlo ensembles")
     seg_err, seg_row = seg_kernel_phase(cx)
     phase_done("17 segment mode vs plain")
     mc_paths, mc = mc_paths_phase(cx)
@@ -2406,9 +2490,16 @@ def main() -> int:
                  f"{ens_rows['config4b_newton']['steps']} steps",
         "plain_shape": f"{MC_E} x {ens_rows['plain_both']['candidates']} candidates x "
                        f"{ens_rows['plain_both']['steps']} steps",
+        "kernel_ms": cx.splits["config4b_newton"]["kernel_ms"],  # torch.profiler's kernel row
         "ms_fan": ens_rows["config4b_fan"]["kernel_event_ms"],
+        "kernel_ms_fan": cx.splits["config4b_fan"]["kernel_ms"],
         "bound_ms_fan": ens_rows["config4b_fan"]["bound_ms"],
         "bound_by_fan": ens_rows["config4b_fan"]["bound_by"],
+        # a thread a ray; K fixed or at run time and the rows' copy width at
+        # the main path's K (stepper.ens_layout)
+        "layout": ENS_LAYOUT,
+        "k_layout": list(ens_rows["k_layout"]),
+        "compared_k": [int(cx.env_mc.c_cheb.shape[-1]), *ENS_OTHER_K],
     }, {
         # bench.py's spectral Jacobian: 512 rays x 16 directions x 500 steps;
         # the plain version once over that fan and the ±30° one

@@ -8,14 +8,18 @@
 // coefficient-tangent kernels' primal is the final-state kernel's on the
 // same Clenshaw rows.
 //
-// The step reads the profile's two series through a row type: `Rows`
-// (constant coefficients; the launch-parameter tangents) or `CoefRows<KC>`
-// (coefficients that carry a tangent along a direction of the Chebyshev
-// coefficients, weighted by a station's hat; Clenshaw only; K fixed at
-// compile time when KC > 0).  `CoefRows` evaluates the c and dc/dz series
-// in one loop: each recurrence keeps its own operations in their order
-// (the bits do not move), and the two independent chains overlap.  `Rows`
-// (the kernels B2-B4) evaluates them in two loops.
+// The step reads the profile's two series through a row type:
+//   * `Rows` (constant coefficients, the launch-parameter tangents; the
+//     kernels B2 and B3) evaluates the c and dc/dz series in two loops;
+//   * `SmemRows<KC>` (the same series, from rows the block staged in
+//     shared memory; the ensemble kernel B4) evaluates them in one loop,
+//     Horner or Clenshaw;
+//   * `CoefRows<KC>` (coefficients that carry a tangent along a direction
+//     of the Chebyshev coefficients, weighted by a station's hat; Clenshaw
+//     only; the kernels B5 and B6) evaluates them in one loop.
+// K is fixed at compile time when KC > 0.  In one loop each recurrence
+// keeps its own operations in their order, so the bits do not move, and
+// the two independent chains overlap.
 //
 // Replaces `_make_step_math` of the Pallas TPU tangent kernels
 // (pygenray_tpu/ops/pallas_stepper.py:730-823).  The step is written over the
@@ -60,6 +64,14 @@ struct Rows {
   const float* cp;
 };
 
+// the (c, dc/dz) series of a profile with constant coefficients, both
+// evaluated in one loop; KC > 0: K = KC at compile time
+template <int KC>
+struct SmemRows {
+  const float* c;
+  const float* cp;
+};
+
 // the (c, dc/dz) series with coefficients {c[k], hat * dc[k]}: perturbed
 // along the direction (dc, dcp), with the station's weight hat in the
 // blended row (1 for a range-independent fit); KC > 0: K = KC at compile
@@ -83,6 +95,40 @@ __device__ __forceinline__ void series2(const Rows& r, int K, Dual u, Dual& c, D
 template <bool POW>
 __device__ __forceinline__ Dual series_c(const Rows& r, int K, Dual u) {
   return dpoly<POW>(r.c, K, u);
+}
+
+// both series in one loop, each recurrence in dhorner's or dclenshaw's
+// order (dual.cuh)
+template <bool POW, int KC>
+__device__ __forceinline__ void series2(const SmemRows<KC>& r, int Kp, Dual u, Dual& c,
+                                        Dual& cp) {
+  const int K = KC > 0 ? KC : Kp;
+  if (POW) {
+    Dual a = {0.0f + r.c[K - 1], 0.0f}, q = {0.0f + r.cp[K - 1], 0.0f};
+    for (int k = K - 2; k >= 0; --k) {
+      a = a * u + r.c[k];
+      q = q * u + r.cp[k];
+    }
+    c = a;
+    cp = q;
+  } else {
+    Dual b1 = {0.0f, 0.0f}, b2 = {0.0f, 0.0f}, q1 = {0.0f, 0.0f}, q2 = {0.0f, 0.0f};
+    for (int k = K - 1; k >= 1; --k) {
+      const Dual t = r.c[k] + 2.0f * u * b1 - b2;
+      b2 = b1;
+      b1 = t;
+      const Dual tp = r.cp[k] + 2.0f * u * q1 - q2;
+      q2 = q1;
+      q1 = tp;
+    }
+    c = r.c[0] + u * b1 - b2;
+    cp = r.cp[0] + u * q1 - q2;
+  }
+}
+
+template <bool POW, int KC>
+__device__ __forceinline__ Dual series_c(const SmemRows<KC>& r, int Kp, Dual u) {
+  return dpoly<POW>(r.c, KC > 0 ? KC : Kp, u);
 }
 
 // coefficient k of a series with its tangent, hat * dc[k] (the plain

@@ -20,9 +20,12 @@ Counterparts of the six Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py
   receiver side (amplitudes, impulse responses, transmission-loss fields).
 * ``trace_tangent_ensemble_kernel`` — the ensemble forward-tangent kernel
   (``trace_pallas_tangent_ensemble``, :1258), in
-  ``csrc/trace_tangent_ens.cu``: the final-state tangent kernel over E
-  realizations of a range-dependent field at once; the Newton engine of
-  the Monte-Carlo eigenray search.
+  ``csrc/trace_tangent_ens.cu``: the final-state tangent kernel's step
+  over E realizations of a range-dependent field at once, each block
+  staging its realization's per-step rows in shared memory (a double
+  buffer filled by asynchronous copies) and evaluating c and dc/dz in one
+  loop, K compiled fixed for the spectral fit ladder's lengths
+  (``ens_layout``); the Newton engine of the Monte-Carlo eigenray search.
 * ``trace_coef_tangent_kernel`` and ``trace_coef_tangent_rd_kernel`` — the
   coefficient-tangent kernels (``trace_pallas_coef_tangent``, :1518, and
   ``trace_pallas_coef_tangent_rd``, :1820), in ``csrc/trace_coef_tangent.cu``
@@ -72,7 +75,7 @@ from ..utils.cache import LRUCache, env_struct_key
 __all__ = [
     "kernel_supported", "tangent_supported", "trace_kernel", "trace_tangent_kernel",
     "trace_tangent_save_kernel", "trace_tangent_ensemble_kernel", "trace_coef_tangent_kernel",
-    "trace_coef_tangent_rd_kernel", "LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES",
+    "trace_coef_tangent_rd_kernel", "ens_layout", "LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES",
     "TANGENT_SAVE_LAUNCHES", "TANGENT_ENS_LAUNCHES", "COEF_TANGENT_LAUNCHES",
     "COEF_TANGENT_RD_LAUNCHES",
 ]
@@ -112,6 +115,23 @@ def seg_layout(Ks: int, S: int) -> str:
     if 2 * step <= MAX_SEG_SMEM:
         return "double"
     return "single" if step <= MAX_SEG_SMEM else "pick"
+
+
+# K the ensemble tangent kernel is compiled for with K fixed (csrc
+# trace_tangent_ens.cu launch_k): the spectral fit ladder's lengths
+# (envdata.make_env_data, orders + 1) up to 96
+ENS_FIXED_K = (16, 24, 32, 48, 64, 96)
+
+
+def ens_layout(K: int, tables) -> tuple:
+    """How the ensemble tangent kernel's launcher (``csrc/trace_tangent_ens.cu``
+    ``trace_tangent_ens_layout``) runs K-term step rows held in ``tables``
+    (the four (E, nsteps, K) tensors of ``integrate._ens_step_data``):
+    ``("fixed" or "run-time" K, bytes an asynchronous copy moves)``, 16
+    when K is a multiple of 4 and every table starts on a 16-byte boundary,
+    else 4."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tables)
+    return ("fixed" if K in ENS_FIXED_K else "run-time", 16 if K % 4 == 0 and aligned else 4)
 
 
 def _seg_mode(env, settings) -> int:

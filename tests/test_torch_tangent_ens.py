@@ -133,3 +133,28 @@ def test_ensemble_wrapper_on_cpu_and_its_operands(ens_run):
     deeper = dataclasses.replace(te, bathy=te.bathy + torch.tensor([[0.0], [10.0]]))
     with pytest.raises(ValueError, match="bathymetry"):
         stepper.trace_tangent_ensemble_kernel(deeper, 1300.0, _p0(), 1.0, _geom(), s)
+
+
+def test_ens_layout_mirrors_the_launcher(ens_run):
+    """``stepper.ens_layout`` is the launcher's choice
+    (``trace_tangent_ens_layout`` and ``launch_k`` in
+    ``csrc/trace_tangent_ens.cu``): K compiled fixed for the spectral fit
+    ladder's lengths up to 96, at run time otherwise; 16-byte copies of the
+    step rows when K is a multiple of 4 and every table is 16-byte aligned,
+    else 4-byte ones.  The step rows ``_ens_step_data`` builds are aligned."""
+    import re
+    from pathlib import Path
+
+    src = (Path(stepper.__file__).parent.parent / "csrc" / "trace_tangent_ens.cu").read_text()
+    cases = [int(k) for k in re.findall(r"case (\d+): return launch<POW, \1>", src)]
+    assert tuple(cases) == stepper.ENS_FIXED_K
+    assert stepper.ENS_FIXED_K == tuple(o + 1 for o in (15, 23, 31, 47, 63, 95))
+    te, _, _ = ens_run
+    sd = _ens_step_data(te, _geom(), SolverSettings(dx=DX))
+    tables = (*sd.prof_ms, *sd.prof_1s)
+    assert stepper.ens_layout(te.c_cheb.shape[-1], tables) == ("fixed", 16)
+    flat = torch.zeros(65)
+    for K, want in ((64, ("fixed", 16)), (96, ("fixed", 16)), (128, ("run-time", 16)),
+                    (31, ("run-time", 4)), (20, ("run-time", 16))):
+        assert stepper.ens_layout(K, [flat[:64]] * 4) == want, K
+    assert stepper.ens_layout(64, [flat[:64]] * 3 + [flat[1:]]) == ("fixed", 4)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Device time of the inversion's kernels (B6 and the range-dependent fan,
-B1c), of the other coefficient-tangent launches and of the fan kernel's
-segment mode (B1d), for several checkouts of the port on one card, with
-the wrapper's share split off.
+B1c), of the other coefficient-tangent launches, of the fan kernel's
+segment mode (B1d) and of the ensemble tangent kernel (B4), for several
+checkouts of the port on one card, with the wrapper's share split off.
 
-    python3 tools/coef_tangent_probe.py ROOT [ROOT ...]
+    python3 tools/coef_tangent_probe.py [--cases A,B,...] [--variants] ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``pygenray_tpu_torch`` package (this
 repository's root, an unpacked ``git archive`` of another commit).  Every
@@ -53,6 +53,17 @@ The cases:
   Munk fit (nz = 2048; basis "pow", 8 terms, and "cheb", 32 terms), 8,192
   rays over ±18° to 30 km, dx = 200 m, 10 saves (``chip_smoke.py``'s
   ``seg_kernel_phase`` cases);
+* ``mc_config4b``: BASELINE config 4b's ``mc_eigenray_times`` (config
+  4's 16 internal-wave realizations of Munk, 64 Chebyshev terms; 512-angle
+  fans over ±14°, receiver at 1300 m, 100 km, dx = 200 m, ztol = 1 m):
+  its wall time, synchronized, the median of 5 after a warm call, and the
+  launch counts of that warm call;
+* ``b4_fan``, ``b4_newton``: ``trace_tangent_ensemble_kernel`` at the two
+  shapes that call gives it, with the step rows built once
+  (``integrate._ens_step_data``) as the call builds them: the fan, 16 x
+  512 angles over ±14°, and a Newton batch, 16 x ``MC_BRACKET_CAP``
+  candidates (each realization's arrivals from the warm call, the fan's
+  last angle in the unused lanes, as ``chip_smoke.ens_tangent_phase``);
 * ``b2_fan8192``: ``trace_tangent_kernel`` over 8,192 rays of the headline
   field, a kernel whose code these redesigns do not touch, as a control for
   the machine;
@@ -64,6 +75,13 @@ The cases:
 The wrappers are called as a user calls them, without the per-step
 geometry an inversion builds once (``stepper.step_geometry``), so that one
 script times checkouts from before and after that argument.
+
+``--cases``: only the named cases (comma-separated), each field built only
+when a case needs it.  ``--variants``: in a checkout whose
+``csrc/trace_tangent_ens.cu`` has compile-time layout variants
+(``ENS_VARIANTS``), also build that source with each variant's ``-D`` flags
+and time ``b4_fan``, ``b4_newton`` and ``mc_config4b`` through it, each B4
+launch held bit for bit to the checkout's own build.
 """
 
 from __future__ import annotations
@@ -77,17 +95,48 @@ import numpy as np
 
 SRC = 1300.0
 N_LAUNCH = 20
-def child(root):
+# the ensemble tangent kernel's layouts other than the checkout's own build
+# (compile-time flags of csrc/trace_tangent_ens.cu), timed by --variants
+ENS_VARIANTS = {"pair": ("-DTE_VARIANT_PAIR",)}
+# every case, in the order they run; --cases picks some of them
+CASES = ("b5_bench", "b1d_rough", "b1d_rough_narrow", "b1d_ri_pow", "b1d_ri_cheb", "b6_2d",
+         "b6_inversion", "b1c_inversion", "b1c_config1", "mc_config4b", "b4_fan", "b4_newton",
+         "b2_fan8192", "inversion_solve")
+
+
+def build_variants(root):
+    """Start one nvcc per layout variant of ``root``'s trace_tangent_ens.cu;
+    returns {name: (library path, process)} (nothing when the source has
+    none)."""
+    import pathlib
+
+    from pygenray_tpu_torch.ops import _build
+
+    src = pathlib.Path(root) / "pygenray_tpu_torch" / "csrc" / "trace_tangent_ens.cu"
+    if "TE_VARIANT_PAIR" not in src.read_text():
+        return {}
+    out = pathlib.Path(root) / "pygenray_tpu_torch" / "_build" / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, flags in ENS_VARIANTS.items():
+        so = out / f"libtrace_tangent_ens_{name}.so"
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(so), str(src)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def child(root, only=CASES, variants=False):
     sys.path.insert(0, root)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import pygenray_tpu_torch as pt
-    from pygenray_tpu_torch.adjoint import _CoefTimes, _deriv_matrix, _directions
     from pygenray_tpu_torch.integrate import _plan
     from pygenray_tpu_torch.ops import stepper
 
     dev = torch.device("cuda", 0)
+    var_builds = build_variants(root) if variants else {}
 
     def events(fn, n=N_LAUNCH, reps=5):
         fn()
@@ -147,97 +196,221 @@ def child(root):
         return torch.as_tensor(np.sin(np.radians(-angles)) / env_c, dtype=torch.float32,
                                device=dev)
 
-    out = {"root": root, "package": pt.__file__, "card": torch.cuda.get_device_name(0)}
-    # the headline field: B5 at bench.py's Jacobian, B2 at 8,192 rays
-    z = np.linspace(0.0, 6000.0, 2048)
-    r = np.linspace(0.0, 100e3, 32)
-    env = pt.make_env_data(np.outer(np.ones(32), pt.munk_ssp(z)), r, z, np.full(32, 5000.0), r,
-                           dtype=torch.float32, device=dev)
-    c_src = float(np.interp(SRC, z, pt.munk_ssp(z)))
-    s, g = pt.SolverSettings(dx=200.0), geom(100e3, 200.0)
-    dcs, dcps = _directions(_deriv_matrix(env))
-    p0 = p0_of(c_src, np.linspace(-14.0, 14.0, 512))
-    p8 = p0_of(c_src, np.linspace(-18.0, 18.0, 8192))
+    # each field is built once, by the first case that needs it
+    fields = {}
 
-    # bench.py's 2D Jacobian field
-    z2 = np.linspace(0.0, 6000.0, 2000)
-    r2 = np.linspace(0.0, 100e3, 32)
-    c2 = np.array([pt.munk_ssp(z2, sofar_depth=1300 + 0.002 * ri) for ri in r2])
-    env2 = pt.make_env_data(c2, r2, z2, np.full(32, 5500.0), r2, dtype=torch.float32,
-                            device=dev, cheb_order=15)
-    s2, g2 = pt.SolverSettings(dx=100.0, interp="cheb", kahan=False), geom(100e3, 100.0)
-    d2, dp2 = _directions(_deriv_matrix(env2))
-    p2 = p0_of(float(pt.bilinear_np(0.0, SRC, r2, z2, c2)), np.linspace(-12.0, 12.0, 64))
+    def field(name):
+        if name not in fields:
+            fields[name] = FIELDS[name]()
+        return fields[name]
 
-    # the gradient-inversion demo's step, on its starting field
-    z3 = np.linspace(0.0, 6000.0, 1200)
-    r3 = np.linspace(0.0, 60e3, 9)
-    env3 = pt.make_env_data(np.outer(np.ones(9), pt.munk_ssp(z3)), r3, z3, np.full(9, 5500.0), r3,
-                            dtype=torch.float32, device=dev, cheb_order=31,
-                            cheb_exact_order=True, force_range_dependent=True,
-                            dcdz="consistent")
-    s3 = pt.SolverSettings(dx=200.0, interp="cheb", kahan=False)
-    c3 = np.interp(SRC, z3, env3.c[0].cpu().numpy())
-    op = _CoefTimes(env3, SRC, np.sin(np.radians(-np.linspace(-11.0, 11.0, 128))) / c3, 0.0,
-                    60e3, s3)
-    env3k = op.env_with(env3.c_cheb)
-    d3, dp3 = _directions(op.Dm)
+    def f_headline():
+        """the headline field: B5 at bench.py's Jacobian, B2 at 8,192 rays"""
+        from pygenray_tpu_torch.adjoint import _deriv_matrix, _directions
 
-    # BASELINE config 1
-    c1 = np.array([pt.munk_ssp(z, sofar_depth=1300 + 0.002 * ri) for ri in np.linspace(0, 100e3, 64)])
-    r1 = np.linspace(0.0, 100e3, 64)
-    env1 = pt.make_env_data(c1, r1, z, np.linspace(4400.0, 4900.0, 64), r1, dtype=torch.float32,
-                            device=dev)
-    s1, g1 = pt.SolverSettings(dx=100.0), geom(100e3, 100.0, 50)
-    p1 = p0_of(float(pt.bilinear_np(0.0, SRC, r1, z, c1)), np.linspace(-15.0, 15.0, 102_400))
+        z = np.linspace(0.0, 6000.0, 2048)
+        r = np.linspace(0.0, 100e3, 32)
+        env = pt.make_env_data(np.outer(np.ones(32), pt.munk_ssp(z)), r, z, np.full(32, 5000.0),
+                               r, dtype=torch.float32, device=dev)
+        c_src = float(np.interp(SRC, z, pt.munk_ssp(z)))
+        dcs, dcps = _directions(_deriv_matrix(env))
+        return {"z": z, "r": r, "env": env, "c_src": c_src, "s": pt.SolverSettings(dx=200.0),
+                "g": geom(100e3, 200.0), "dcs": dcs, "dcps": dcps,
+                "p0": p0_of(c_src, np.linspace(-14.0, 14.0, 512)),
+                "p8": p0_of(c_src, np.linspace(-18.0, 18.0, 8192))}
 
-    # bench.py's rough field, realization 0 (tests/fixtures/rough_field.py)
-    import importlib.util
+    def f_jac2d():
+        """bench.py's 2D Jacobian field"""
+        from pygenray_tpu_torch.adjoint import _deriv_matrix, _directions
 
-    spec = importlib.util.spec_from_file_location(
-        "rough_field", f"{root}/tests/fixtures/rough_field.py")
-    rough = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(rough)
-    cr, rr, zr = rough.rough_tables(pt.munk_ssp, 1)
-    env_r = pt.make_env_data(cr[0], rr, zr, np.full(len(rr), 5000.0), rr, dtype=torch.float32,
-                             device=dev, interp="seg", seg_basis="cheb", seg_order=31,
-                             seg_exact_order=True)
-    s_r, g_r = pt.SolverSettings(dx=100.0), geom(100e3, 100.0)
-    c_r = float(pt.munk_ssp(np.asarray([SRC]))[0])
-    p_r = p0_of(c_r, np.linspace(-15.0, 15.0, 65_536))
-    p_n = p0_of(c_r, np.linspace(-0.01, 0.01, 65_536))
-    # range-independent segment fits of Munk, as chip_smoke's seg_kernel_phase
-    seg_ri = {}
-    for basis in ("pow", "cheb"):
-        e = pt.make_env_data(np.outer(np.ones(32), pt.munk_ssp(z)), r, z, np.full(32, 5000.0), r,
-                             interp="seg", seg_basis=basis, dtype=torch.float32, device=dev)
-        seg_ri[basis] = (e, p0_of(c_src, np.linspace(-18.0, 18.0, 8192)))
-    g_ri = geom(30e3, 200.0, 10)
+        z2 = np.linspace(0.0, 6000.0, 2000)
+        r2 = np.linspace(0.0, 100e3, 32)
+        c2 = np.array([pt.munk_ssp(z2, sofar_depth=1300 + 0.002 * ri) for ri in r2])
+        env2 = pt.make_env_data(c2, r2, z2, np.full(32, 5500.0), r2, dtype=torch.float32,
+                                device=dev, cheb_order=15)
+        d2, dp2 = _directions(_deriv_matrix(env2))
+        return {"env": env2, "s": pt.SolverSettings(dx=100.0, interp="cheb", kahan=False),
+                "g": geom(100e3, 100.0), "d": d2, "dp": dp2,
+                "p0": p0_of(float(pt.bilinear_np(0.0, SRC, r2, z2, c2)),
+                            np.linspace(-12.0, 12.0, 64))}
 
+    def f_inversion():
+        """the gradient-inversion demo's step, on its starting field"""
+        from pygenray_tpu_torch.adjoint import _CoefTimes, _directions
+
+        z3 = np.linspace(0.0, 6000.0, 1200)
+        r3 = np.linspace(0.0, 60e3, 9)
+        env3 = pt.make_env_data(np.outer(np.ones(9), pt.munk_ssp(z3)), r3, z3,
+                                np.full(9, 5500.0), r3, dtype=torch.float32, device=dev,
+                                cheb_order=31, cheb_exact_order=True,
+                                force_range_dependent=True, dcdz="consistent")
+        s3 = pt.SolverSettings(dx=200.0, interp="cheb", kahan=False)
+        c3 = np.interp(SRC, z3, env3.c[0].cpu().numpy())
+        op = _CoefTimes(env3, SRC, np.sin(np.radians(-np.linspace(-11.0, 11.0, 128))) / c3,
+                        0.0, 60e3, s3)
+        d3, dp3 = _directions(op.Dm)
+        return {"z": z3, "r": r3, "env": env3, "s": s3, "op": op, "envk": op.env_with(env3.c_cheb),
+                "d": d3, "dp": dp3}
+
+    def f_config1():
+        """BASELINE config 1"""
+        z = np.linspace(0.0, 6000.0, 2048)
+        r1 = np.linspace(0.0, 100e3, 64)
+        c1 = np.array([pt.munk_ssp(z, sofar_depth=1300 + 0.002 * ri) for ri in r1])
+        env1 = pt.make_env_data(c1, r1, z, np.linspace(4400.0, 4900.0, 64), r1,
+                                dtype=torch.float32, device=dev)
+        return {"env": env1, "s": pt.SolverSettings(dx=100.0), "g": geom(100e3, 100.0, 50),
+                "p0": p0_of(float(pt.bilinear_np(0.0, SRC, r1, z, c1)),
+                            np.linspace(-15.0, 15.0, 102_400))}
+
+    def f_rough():
+        """bench.py's rough field, realization 0 (tests/fixtures/rough_field.py)"""
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "rough_field", f"{root}/tests/fixtures/rough_field.py")
+        rough = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(rough)
+        cr, rr, zr = rough.rough_tables(pt.munk_ssp, 1)
+        env_r = pt.make_env_data(cr[0], rr, zr, np.full(len(rr), 5000.0), rr,
+                                 dtype=torch.float32, device=dev, interp="seg",
+                                 seg_basis="cheb", seg_order=31, seg_exact_order=True)
+        c_r = float(pt.munk_ssp(np.asarray([SRC]))[0])
+        return {"env": env_r, "s": pt.SolverSettings(dx=100.0), "g": geom(100e3, 100.0),
+                "p0": p0_of(c_r, np.linspace(-15.0, 15.0, 65_536)),
+                "p0_narrow": p0_of(c_r, np.linspace(-0.01, 0.01, 65_536))}
+
+    def f_seg_ri():
+        """range-independent segment fits of Munk, as chip_smoke's seg_kernel_phase"""
+        h = field("headline")
+        z, r = h["z"], h["r"]
+        out = {"g": geom(30e3, 200.0, 10)}
+        for basis in ("pow", "cheb"):
+            e = pt.make_env_data(np.outer(np.ones(32), pt.munk_ssp(z)), r, z, np.full(32, 5000.0),
+                                 r, interp="seg", seg_basis=basis, dtype=torch.float32,
+                                 device=dev)
+            out[basis] = (e, p0_of(h["c_src"], np.linspace(-18.0, 18.0, 8192)))
+        return out
+
+    def f_config4b():
+        """BASELINE config 4's ensemble (16 internal-wave realizations of
+        Munk, nz = 1024, 32 stations over 100 km, flat 5000 m, 64 Chebyshev
+        terms) and config 4b's call on it, as chip_smoke's mc_paths_phase
+        and ens_tangent_phase run them: the B4 shapes of that call (the
+        512-angle fan; 16 x MC_BRACKET_CAP Newton candidates, each
+        realization's arrivals and the fan's last angle in the unused lanes)
+        with the step rows built once, as the main path builds them"""
+        from pygenray_tpu_torch.integrate import _ens_step_data
+        from pygenray_tpu_torch.models import perturbed_munk_tables
+        from pygenray_tpu_torch.montecarlo import MC_BRACKET_CAP
+
+        c, r, z = perturbed_munk_tables(16, r_max=100e3, nr=32, nz=1024, seed=0)
+        env = pt.make_env_ensemble(c, r, z, np.full(32, 5000.0), r, dtype=torch.float32,
+                                   device=dev)
+        s, g = pt.SolverSettings(dx=200.0), geom(100e3, 200.0)
+        fan = np.linspace(-14.0, 14.0, 512)
+        call = lambda: pt.mc_eigenray_times(env, fan, 1300.0, SRC, 0.0, 100e3, ztol=1.0,
+                                            settings=s)
+        mc = call()
+        newton = np.full((16, MC_BRACKET_CAP), 14.0)
+        newton[:, :mc["valid"].shape[1]] = np.where(mc["valid"], mc["theta"], 14.0)
+        c_src = float(pt.munk_ssp(np.asarray([SRC]))[0])
+        return {"env": env, "s": s, "g": g, "sd": _ens_step_data(env, g, s), "call": call,
+                "path": mc["path"], "arrivals": int(mc["valid"].sum()),
+                "fan": p0_of(c_src, np.broadcast_to(fan, (16, 512))),
+                "newton": p0_of(c_src, newton)}
+
+    FIELDS = {"headline": f_headline, "jac2d": f_jac2d, "inversion": f_inversion,
+              "config1": f_config1, "rough": f_rough, "seg_ri": f_seg_ri, "config4b": f_config4b}
+
+    def b4(shape):
+        f = field("config4b")
+        return lambda: stepper.trace_tangent_ensemble_kernel(f["env"], SRC, f[shape], 1.0, f["g"],
+                                                             f["s"], f["sd"])
+
+    def mc_config4b():
+        """the wall time of config 4b's mc_eigenray_times (synchronized,
+        median of 5 after the field's warm call), and its launch counts"""
+        import time
+
+        f = field("config4b")
+        names = ("LAUNCHES", "TANGENT_ENS_LAUNCHES", "TANGENT_LAUNCHES")
+        for n in names:
+            setattr(stepper, n, 0)
+        torch.cuda.synchronize()
+        f["call"]()
+        torch.cuda.synchronize()
+        launches = {n: getattr(stepper, n) for n in names}
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f["call"]()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return {"median_ms": statistics.median(runs), "runs_ms": runs, "launches": launches,
+                "path": f["path"], "arrivals": f["arrivals"]}
+
+    # name: (what a launch runs, the kernel's name in the profiler's rows)
     cases = {
-        "b1d_rough": (lambda: stepper.trace_kernel(env_r, SRC, p_r, g_r, s_r), "trace_fan"),
-        "b1d_rough_narrow": (lambda: stepper.trace_kernel(env_r, SRC, p_n, g_r, s_r),
-                             "trace_fan"),
-        "b1d_ri_pow": (lambda: stepper.trace_kernel(seg_ri["pow"][0], SRC, seg_ri["pow"][1], g_ri,
-                                                    s), "trace_fan"),
-        "b1d_ri_cheb": (lambda: stepper.trace_kernel(seg_ri["cheb"][0], SRC, seg_ri["cheb"][1],
-                                                     g_ri, s), "trace_fan"),
-        "b6_2d": (lambda: stepper.trace_coef_tangent_rd_kernel(env2, SRC, p2, d2, dp2, g2, s2),
-                  "coef_tangent"),
-        "b6_inversion": (lambda: stepper.trace_coef_tangent_rd_kernel(
-            env3k, SRC, op.p0, d3, dp3, op.geom, s3), "coef_tangent"),
-        "b1c_inversion": (lambda: stepper.trace_kernel(env3k, SRC, op.p0, op.geom, s3),
-                          "trace_fan"),
-        "b1c_config1": (lambda: stepper.trace_kernel(env1, SRC, p1, g1, s1), "trace_fan"),
+        "b5_bench": lambda: (lambda h=field("headline"): stepper.trace_coef_tangent_kernel(
+            h["env"], SRC, h["p0"], h["dcs"], h["dcps"], h["g"], h["s"]), "coef_tangent"),
+        "b1d_rough": lambda: (lambda f=field("rough"): stepper.trace_kernel(
+            f["env"], SRC, f["p0"], f["g"], f["s"]), "trace_fan"),
+        "b1d_rough_narrow": lambda: (lambda f=field("rough"): stepper.trace_kernel(
+            f["env"], SRC, f["p0_narrow"], f["g"], f["s"]), "trace_fan"),
+        "b1d_ri_pow": lambda: (lambda f=field("seg_ri"), s=field("headline")["s"]:
+                               stepper.trace_kernel(f["pow"][0], SRC, f["pow"][1], f["g"], s),
+                               "trace_fan"),
+        "b1d_ri_cheb": lambda: (lambda f=field("seg_ri"), s=field("headline")["s"]:
+                                stepper.trace_kernel(f["cheb"][0], SRC, f["cheb"][1], f["g"], s),
+                                "trace_fan"),
+        "b6_2d": lambda: (lambda f=field("jac2d"): stepper.trace_coef_tangent_rd_kernel(
+            f["env"], SRC, f["p0"], f["d"], f["dp"], f["g"], f["s"]), "coef_tangent"),
+        "b6_inversion": lambda: (lambda f=field("inversion"): stepper.trace_coef_tangent_rd_kernel(
+            f["envk"], SRC, f["op"].p0, f["d"], f["dp"], f["op"].geom, f["s"]), "coef_tangent"),
+        "b1c_inversion": lambda: (lambda f=field("inversion"): stepper.trace_kernel(
+            f["envk"], SRC, f["op"].p0, f["op"].geom, f["s"]), "trace_fan"),
+        "b1c_config1": lambda: (lambda f=field("config1"): stepper.trace_kernel(
+            f["env"], SRC, f["p0"], f["g"], f["s"]), "trace_fan"),
+        "b4_fan": lambda: (b4("fan"), "tangent_ens"),
+        "b4_newton": lambda: (b4("newton"), "tangent_ens"),
+        "b2_fan8192": lambda: (lambda h=field("headline"): stepper.trace_tangent_kernel(
+            h["env"], SRC, h["p8"], 1.0, h["g"], h["s"]), "trace_tangent"),
     }
-    out["b5_bench"] = measure(
-        lambda: stepper.trace_coef_tangent_kernel(env, SRC, p0, dcs, dcps, g, s), "coef_tangent")
-    for name, (fn, kernel) in cases.items():
-        out[name] = measure(fn, kernel)
-    out["b2_fan8192"] = measure(lambda: stepper.trace_tangent_kernel(env, SRC, p8, 1.0, g, s),
-                                "trace_tangent")
-    out["b1d_rough"]["seg_terms"] = int(env_r.c_seg.shape[-2])
-    out["inversion_solve"] = inversion_solve(torch, pt, dev, z3, r3, env3, s3)
+
+    out = {"root": root, "package": pt.__file__, "card": torch.cuda.get_device_name(0)}
+    for name in CASES:
+        if name not in only:
+            continue
+        if name == "mc_config4b":
+            out[name] = mc_config4b()
+        elif name == "inversion_solve":
+            f = field("inversion")
+            out[name] = inversion_solve(torch, pt, dev, f["z"], f["r"], f["env"], f["s"])
+        else:
+            fn, kernel = cases[name]()
+            out[name] = measure(fn, kernel)
+    if "b1d_rough" in out:
+        out["b1d_rough"]["seg_terms"] = int(field("rough")["env"].c_seg.shape[-2])
+    if var_builds:
+        own = stepper._kernel_fn("trace_tangent_ens_f32")
+        ref = {shape: b4(shape)() for shape in ("fan", "newton")}
+        for name, (so, proc) in var_builds.items():
+            log = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"variant {name} did not build:\n{log}")
+            fn = getattr(__import__("ctypes").CDLL(str(so)), "trace_tangent_ens_f32")
+            fn.argtypes, fn.restype = own.argtypes, own.restype
+            stepper._FNS["trace_tangent_ens_f32"] = fn
+            for shape in ("fan", "newton"):
+                got = b4(shape)()
+                equal = all(bool(torch.equal(a, b)) for a, b in zip(got, ref[shape]))
+                out[f"b4_{shape}_{name}"] = {**measure(b4(shape), "tangent_ens"), "equal": equal}
+            out[f"mc_config4b_{name}"] = mc_config4b()
+            out[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
+                                    if "registers" in ln or "spill" in ln][:40]
+        stepper._FNS["trace_tangent_ens_f32"] = own
     print(json.dumps(out), flush=True)
 
 
@@ -286,14 +459,27 @@ def inversion_solve(torch, pt, dev, z, r, env0, s, iters=150, lr=0.03, lam=1e-10
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        child(sys.argv[2])
+    args = sys.argv[1:]
+    variants = "--variants" in args
+    only = CASES
+    if "--cases" in args:
+        i = args.index("--cases")
+        only = tuple(args[i + 1].split(","))
+        del args[i:i + 2]
+        unknown = set(only) - set(CASES)
+        if unknown:
+            print(f"unknown cases: {sorted(unknown)}", file=sys.stderr)
+            return 2
+    args = [a for a in args if a != "--variants"]
+    if len(args) == 2 and args[0] == "--child":
+        child(args[1], only, variants)
         return 0
-    if len(sys.argv) < 2:
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    for root in sys.argv[1:]:
-        rc = subprocess.run([sys.executable, __file__, "--child", root]).returncode
+    extra = ["--cases", ",".join(only)] + (["--variants"] if variants else [])
+    for root in args:
+        rc = subprocess.run([sys.executable, __file__, "--child", root, *extra]).returncode
         if rc:
             return rc
     return 0
