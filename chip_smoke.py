@@ -164,7 +164,7 @@ SEG_OTHER_X1 = 10e3  # their range: across the rough field's first station
 # ENS_OTHER_X1
 ENS_OTHER_K = (96, 128)
 ENS_OTHER_X1 = 10e3
-ENS_LAYOUT = "one thread a ray"  # csrc/trace_tangent_ens.cu
+ENS_LAYOUT = "a lane pair a ray"  # csrc/trace_tangent_ens.cu
 # Monte-Carlo eigenrays, the port's one-shot Newton against the JAX
 # package's regula falsi (tests/test_montecarlo.py:331-337)
 MC_ANGLE_DEG = 0.05
@@ -2495,7 +2495,7 @@ def main() -> int:
         "kernel_ms_fan": cx.splits["config4b_fan"]["kernel_ms"],
         "bound_ms_fan": ens_rows["config4b_fan"]["bound_ms"],
         "bound_by_fan": ens_rows["config4b_fan"]["bound_by"],
-        # a thread a ray; K fixed or at run time and the rows' copy width at
+        # a lane pair a ray; K fixed or at run time and the rows' copy width at
         # the main path's K (stepper.ens_layout)
         "layout": ENS_LAYOUT,
         "k_layout": list(ens_rows["k_layout"]),

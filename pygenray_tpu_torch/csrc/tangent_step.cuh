@@ -11,15 +11,17 @@
 // The step reads the profile's two series through a row type:
 //   * `Rows` (constant coefficients, the launch-parameter tangents; the
 //     kernels B2 and B3) evaluates the c and dc/dz series in two loops;
-//   * `SmemRows<KC>` (the same series, from rows the block staged in
-//     shared memory; the ensemble kernel B4) evaluates them in one loop,
-//     Horner or Clenshaw;
+//   * `PairRows<KC>` (the same series, from rows the block staged in shared
+//     memory; the ensemble kernel B4) has two lanes of a warp carry one ray:
+//     the even lane evaluates c, the odd lane dc/dz, Horner or Clenshaw, and
+//     the pair swaps the results, so both lanes must step the same ray
+//     together (they hold the same state and take the same branches);
 //   * `CoefRows<KC>` (coefficients that carry a tangent along a direction
 //     of the Chebyshev coefficients, weighted by a station's hat; Clenshaw
-//     only; the kernels B5 and B6) evaluates them in one loop.
-// K is fixed at compile time when KC > 0.  In one loop each recurrence
-// keeps its own operations in their order, so the bits do not move, and
-// the two independent chains overlap.
+//     only; the kernels B5 and B6) evaluates c and dc/dz in one loop.
+// K is fixed at compile time when KC > 0.  Each recurrence keeps its own
+// operations in their order, so the bits do not move, and the two
+// independent chains overlap (on two lanes, or in one loop).
 //
 // Replaces `_make_step_math` of the Pallas TPU tangent kernels
 // (pygenray_tpu/ops/pallas_stepper.py:730-823).  The step is written over the
@@ -64,10 +66,10 @@ struct Rows {
   const float* cp;
 };
 
-// the (c, dc/dz) series of a profile with constant coefficients, both
-// evaluated in one loop; KC > 0: K = KC at compile time
+// the (c, dc/dz) series of a profile with constant coefficients, evaluated
+// by a lane pair; KC > 0: K = KC at compile time
 template <int KC>
-struct SmemRows {
+struct PairRows {
   const float* c;
   const float* cp;
 };
@@ -97,37 +99,23 @@ __device__ __forceinline__ Dual series_c(const Rows& r, int K, Dual u) {
   return dpoly<POW>(r.c, K, u);
 }
 
-// both series in one loop, each recurrence in dhorner's or dclenshaw's
-// order (dual.cuh)
+// both series, each by one lane of the pair (threads 2i and 2i + 1 of a
+// warp-aligned block), each recurrence in dhorner's or dclenshaw's order
+// (dual.cuh); the pair swaps its results through a shuffle of its two lanes
 template <bool POW, int KC>
-__device__ __forceinline__ void series2(const SmemRows<KC>& r, int Kp, Dual u, Dual& c,
+__device__ __forceinline__ void series2(const PairRows<KC>& r, int Kp, Dual u, Dual& c,
                                         Dual& cp) {
-  const int K = KC > 0 ? KC : Kp;
-  if (POW) {
-    Dual a = {0.0f + r.c[K - 1], 0.0f}, q = {0.0f + r.cp[K - 1], 0.0f};
-    for (int k = K - 2; k >= 0; --k) {
-      a = a * u + r.c[k];
-      q = q * u + r.cp[k];
-    }
-    c = a;
-    cp = q;
-  } else {
-    Dual b1 = {0.0f, 0.0f}, b2 = {0.0f, 0.0f}, q1 = {0.0f, 0.0f}, q2 = {0.0f, 0.0f};
-    for (int k = K - 1; k >= 1; --k) {
-      const Dual t = r.c[k] + 2.0f * u * b1 - b2;
-      b2 = b1;
-      b1 = t;
-      const Dual tp = r.cp[k] + 2.0f * u * q1 - q2;
-      q2 = q1;
-      q1 = tp;
-    }
-    c = r.c[0] + u * b1 - b2;
-    cp = r.cp[0] + u * q1 - q2;
-  }
+  const bool odd = threadIdx.x & 1;
+  const Dual mine = dpoly<POW>(odd ? r.cp : r.c, KC > 0 ? KC : Kp, u);
+  const unsigned pair = 3u << (threadIdx.x & 30);
+  const Dual other = {__shfl_xor_sync(pair, mine.v, 1), __shfl_xor_sync(pair, mine.t, 1)};
+  c = odd ? other : mine;
+  cp = odd ? mine : other;
 }
 
+// the c series alone: both lanes evaluate it
 template <bool POW, int KC>
-__device__ __forceinline__ Dual series_c(const SmemRows<KC>& r, int Kp, Dual u) {
+__device__ __forceinline__ Dual series_c(const PairRows<KC>& r, int Kp, Dual u) {
   return dpoly<POW>(r.c, KC > 0 ? KC : Kp, u);
 }
 

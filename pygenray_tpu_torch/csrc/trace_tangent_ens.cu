@@ -1,12 +1,12 @@
 // Final-state ray trace with one forward tangent across an ensemble of
 // environments: one launch advances every (realization, candidate) ray of a
-// Monte-Carlo eigenray search, one CUDA thread per ray.
+// Monte-Carlo eigenray search, two CUDA threads (a lane pair) per ray.
 //
 // Replaces: the Pallas TPU ensemble tangent kernel
 // `trace_pallas_tangent_ensemble` (pygenray_tpu/ops/pallas_stepper.py:1258,
 // `_make_final_kernel(ens=True)` :826): the forward-tangent kernel of
 // trace_tangent.cu (B2) with a realization axis.  Grid block (x, e) traces
-// realization e's candidates x * 64 ... x * 64 + 63 of its (M,) launch
+// realization e's candidates x * 32 ... x * 32 + 31 of its (M,) launch
 // parameters p0[e] and seeds dp0[e] against realization e's own per-step
 // coefficient rows (range-dependent spectral fits, rows blended linearly in
 // range at mid-step and step end, e's block of the (E, nsteps, K) tables)
@@ -21,34 +21,39 @@
 // (pygenray_tpu_torch/integrate.py:_trace_tangent_ens_impl) is B2's plain
 // loop run once over the (E, M) rays, each realization on its own rows.
 //
-// Design.  Each thread keeps one ray's primal and tangent state in
-// registers for all steps.  The block stages realization e's rows of step
-// k + 1 (mid-step and step-end c and dc/dz, 4 K floats, 1 KB at K = 64)
-// into one half of a shared-memory double buffer with `cp.async` copies
-// (16 bytes each when K is a multiple of 4 and the tables are 16-byte
-// aligned, else 4) while its threads step with step k's rows from the other
-// half: one `cp.async.wait_group` and one barrier a step, so no coefficient
-// load of the dependent chain waits on L1 or L2.  The launch-range rows and
-// the bottom-angle series sit in shared memory too (`load_series`).  The c
-// and dc/dz series run in one loop (tangent_step.cuh's `SmemRows`), their
-// two recurrences overlapping, and K = 16, 24, 32, 48, 64 and 96 (the
-// spectral fit ladder's orders + 1, envdata.py) are compiled with K fixed,
-// so the loops unroll and the loads issue ahead of the terms that need
-// them; any other K up to TS_MAX_K takes a run-time-K build.  A block's
-// threads stay in the step loop together: a dead ray, or a thread past M,
-// skips the step's arithmetic but still copies and meets the barrier,
-// until no ray of the block is alive.  Blocks of 64 threads: a Newton
-// batch is a few candidates per realization (at most MC_BRACKET_CAP = 24),
-// so small blocks spread the E realizations' blocks over more SMs.
+// Design.  Two lanes of a warp carry one ray (a lane pair), each keeping
+// the ray's primal and tangent state in registers for all steps: the even
+// lane evaluates the c series, the odd lane dc/dz (tangent_step.cuh's
+// `PairRows`), and the pair swaps the results through a shuffle; the rest
+// of the step both lanes compute alike.  The block stages realization e's
+// rows of step k + 1 (mid-step and step-end c and dc/dz, 4 K floats, 1 KB
+// at K = 64) into one half of a shared-memory double buffer with
+// `cp.async` copies (16 bytes each when K is a multiple of 4 and the tables
+// are 16-byte aligned, else 4) while its threads step with step k's rows
+// from the other half: one `cp.async.wait_group` and one barrier a step, so
+// no coefficient load of the dependent chain waits on L1 or L2.  The
+// launch-range rows and the bottom-angle series sit in shared memory too
+// (`load_series`).  K = 16, 24, 32, 48, 64 and 96 (the spectral fit
+// ladder's orders + 1, envdata.py) are compiled with K fixed, so the loops
+// unroll and the loads issue ahead of the terms that need them; any other
+// K up to TS_MAX_K takes a run-time-K build.  A block's threads stay in the
+// step loop together: a dead ray, or a pair past M, skips the step's
+// arithmetic but still copies and meets the barrier, until no ray of the
+// block is alive.  Blocks of 64 threads (32 rays): a Newton batch is a few
+// candidates per realization (at most MC_BRACKET_CAP = 24), so small blocks
+// spread the E realizations' blocks over more SMs.  One thread a ray with
+// both series in one loop measured 12 % slower at both of config 4b's
+// shapes (PERF.md).
 //
 // What bounds it on an H100.  At config 4b's shapes (16 realizations x 24
 // Newton candidates, or x 512 fan angles, 500 steps) the card holds at most
-// one or two warps an SM, so one ray's chain of 500 dependent Dual steps
-// sets the time: latency, not FP32 throughput (about 2.5 times the forward
+// one warp a scheduler, so one ray's chain of 500 dependent Dual steps sets
+// the time: latency, not FP32 throughput (about 2.5 times the forward
 // step's operations per ray-step) and not bytes (16 x 500 x 64 x 4 x 4 B =
 // 8 MB of rows, read once per launch, L2-resident after the first).  The
 // design shortens that chain: the series' coefficients come from shared
-// memory at fixed offsets, and the two series of a right-hand side overlap.
+// memory at fixed offsets, and a right-hand side's two series run at once
+// on two lanes, each lane's chain one series long.
 //
 // Rounding: built with -fmad=false and without fast math (ops/_build.py),
 // as trace_fan.cu.
@@ -60,40 +65,7 @@
 #include "tangent_step.cuh"
 
 #define TE_BLOCK 64
-
-#ifdef TE_VARIANT_PAIR
-// measured variant: two lanes a ray; the even lane evaluates the c series,
-// the odd one dc/dz, and the pair swaps the results
-#define TE_LANES 2
-namespace tangent_step {
-template <int KC>
-struct PairRows {
-  const float* c;
-  const float* cp;
-};
-
-template <bool POW, int KC>
-__device__ __forceinline__ void series2(const PairRows<KC>& r, int Kp, Dual u, Dual& c,
-                                        Dual& cp) {
-  const bool odd = threadIdx.x & 1;
-  const Dual mine = dpoly<POW>(odd ? r.cp : r.c, KC > 0 ? KC : Kp, u);
-  const unsigned pair = 3u << (threadIdx.x & 30);
-  const Dual other = {__shfl_xor_sync(pair, mine.v, 1), __shfl_xor_sync(pair, mine.t, 1)};
-  c = odd ? other : mine;
-  cp = odd ? mine : other;
-}
-
-template <bool POW, int KC>
-__device__ __forceinline__ Dual series_c(const PairRows<KC>& r, int Kp, Dual u) {
-  return dpoly<POW>(r.c, KC > 0 ? KC : Kp, u);
-}
-}  // namespace tangent_step
-#define TE_ROWS PairRows
-#else
-#define TE_LANES 1
-#define TE_ROWS SmemRows
-#endif
-#define TE_RAYS (TE_BLOCK / TE_LANES)  // rays a block
+#define TE_RAYS (TE_BLOCK / 2)  // rays a block: a lane pair each
 
 namespace {
 
@@ -149,7 +121,7 @@ trace_tangent_ens_kernel(Params P, int v16, const float* __restrict__ p0v,
                          float* __restrict__ dz_out, float* __restrict__ dp_out,
                          int* __restrict__ n_surf_out, int* __restrict__ n_bott_out,
                          int* __restrict__ death_out) {
-  using R = TE_ROWS<KC>;
+  using R = PairRows<KC>;
   constexpr int KS = KC > 0 ? KC : TS_MAX_K;  // shared-memory row length
   const int K = KC > 0 ? KC : P.K;
   const int e = blockIdx.y;
@@ -169,12 +141,13 @@ trace_tangent_ens_kernel(Params P, int v16, const float* __restrict__ p0v,
   cp_async_wait_all();
   load_series(P, ccoef + (size_t)e * K, cpcoef + (size_t)e * K, bacoef, s_c, s_cp, s_ba);
 
-  const int j = blockIdx.x * TE_RAYS + threadIdx.x / TE_LANES;
+  const int j = blockIdx.x * TE_RAYS + threadIdx.x / 2;  // the pair's ray
   const bool act = j < P.B;
   const size_t i = (size_t)e * P.B + j;
   const StepInputs in = {b0s, b1s, xoob, nullptr, nullptr, nullptr, nullptr};
 
-  // the launch tangent seeds p only; a dead ray is frozen
+  // the launch tangent seeds p only; a dead ray is frozen; both lanes of a
+  // pair step it
   RayState s = initial_state<POW>(R{s_c, s_cp}, P, z0, 0.0f, act ? p0v[i] : 0.0f,
                                   act ? dp0v[i] : 0.0f);
   s.alive = s.alive && act;
@@ -188,7 +161,7 @@ trace_tangent_ens_kernel(Params P, int v16, const float* __restrict__ p0v,
     // step k's half read, step k + 1's written, by every thread
     if (!__syncthreads_or(s.alive)) break;
   }
-  if (!act || (threadIdx.x % TE_LANES) != 0) return;
+  if (!act || (threadIdx.x & 1)) return;  // the even lane writes
 
   T_out[i] = s.T.v;
   z_out[i] = s.z.v;

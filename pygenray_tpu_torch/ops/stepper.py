@@ -23,9 +23,10 @@ Counterparts of the six Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py
   ``csrc/trace_tangent_ens.cu``: the final-state tangent kernel's step
   over E realizations of a range-dependent field at once, each block
   staging its realization's per-step rows in shared memory (a double
-  buffer filled by asynchronous copies) and evaluating c and dc/dz in one
-  loop, K compiled fixed for the spectral fit ladder's lengths
-  (``ens_layout``); the Newton engine of the Monte-Carlo eigenray search.
+  buffer filled by asynchronous copies), a lane pair per ray evaluating c
+  and dc/dz at once, K compiled fixed for the spectral fit ladder's
+  lengths (``ens_layout``); the Newton engine of the Monte-Carlo eigenray
+  search.
 * ``trace_coef_tangent_kernel`` and ``trace_coef_tangent_rd_kernel`` — the
   coefficient-tangent kernels (``trace_pallas_coef_tangent``, :1518, and
   ``trace_pallas_coef_tangent_rd``, :1820), in ``csrc/trace_coef_tangent.cu``

@@ -4,7 +4,7 @@ B1c), of the other coefficient-tangent launches, of the fan kernel's
 segment mode (B1d) and of the ensemble tangent kernel (B4), for several
 checkouts of the port on one card, with the wrapper's share split off.
 
-    python3 tools/coef_tangent_probe.py [--cases A,B,...] [--variants] ROOT [ROOT ...]
+    python3 tools/coef_tangent_probe.py [--cases A,B,...] ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``pygenray_tpu_torch`` package (this
 repository's root, an unpacked ``git archive`` of another commit).  Every
@@ -77,11 +77,7 @@ geometry an inversion builds once (``stepper.step_geometry``), so that one
 script times checkouts from before and after that argument.
 
 ``--cases``: only the named cases (comma-separated), each field built only
-when a case needs it.  ``--variants``: in a checkout whose
-``csrc/trace_tangent_ens.cu`` has compile-time layout variants
-(``ENS_VARIANTS``), also build that source with each variant's ``-D`` flags
-and time ``b4_fan``, ``b4_newton`` and ``mc_config4b`` through it, each B4
-launch held bit for bit to the checkout's own build.
+when a case needs it.
 """
 
 from __future__ import annotations
@@ -95,38 +91,13 @@ import numpy as np
 
 SRC = 1300.0
 N_LAUNCH = 20
-# the ensemble tangent kernel's layouts other than the checkout's own build
-# (compile-time flags of csrc/trace_tangent_ens.cu), timed by --variants
-ENS_VARIANTS = {"pair": ("-DTE_VARIANT_PAIR",)}
 # every case, in the order they run; --cases picks some of them
 CASES = ("b5_bench", "b1d_rough", "b1d_rough_narrow", "b1d_ri_pow", "b1d_ri_cheb", "b6_2d",
          "b6_inversion", "b1c_inversion", "b1c_config1", "mc_config4b", "b4_fan", "b4_newton",
          "b2_fan8192", "inversion_solve")
 
 
-def build_variants(root):
-    """Start one nvcc per layout variant of ``root``'s trace_tangent_ens.cu;
-    returns {name: (library path, process)} (nothing when the source has
-    none)."""
-    import pathlib
-
-    from pygenray_tpu_torch.ops import _build
-
-    src = pathlib.Path(root) / "pygenray_tpu_torch" / "csrc" / "trace_tangent_ens.cu"
-    if "TE_VARIANT_PAIR" not in src.read_text():
-        return {}
-    out = pathlib.Path(root) / "pygenray_tpu_torch" / "_build" / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, flags in ENS_VARIANTS.items():
-        so = out / f"libtrace_tangent_ens_{name}.so"
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(so), str(src)]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    return procs
-
-
-def child(root, only=CASES, variants=False):
+def child(root, only=CASES):
     sys.path.insert(0, root)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -136,7 +107,6 @@ def child(root, only=CASES, variants=False):
     from pygenray_tpu_torch.ops import stepper
 
     dev = torch.device("cuda", 0)
-    var_builds = build_variants(root) if variants else {}
 
     def events(fn, n=N_LAUNCH, reps=5):
         fn()
@@ -393,24 +363,6 @@ def child(root, only=CASES, variants=False):
             out[name] = measure(fn, kernel)
     if "b1d_rough" in out:
         out["b1d_rough"]["seg_terms"] = int(field("rough")["env"].c_seg.shape[-2])
-    if var_builds:
-        own = stepper._kernel_fn("trace_tangent_ens_f32")
-        ref = {shape: b4(shape)() for shape in ("fan", "newton")}
-        for name, (so, proc) in var_builds.items():
-            log = proc.communicate()[0]
-            if proc.returncode:
-                raise RuntimeError(f"variant {name} did not build:\n{log}")
-            fn = getattr(__import__("ctypes").CDLL(str(so)), "trace_tangent_ens_f32")
-            fn.argtypes, fn.restype = own.argtypes, own.restype
-            stepper._FNS["trace_tangent_ens_f32"] = fn
-            for shape in ("fan", "newton"):
-                got = b4(shape)()
-                equal = all(bool(torch.equal(a, b)) for a, b in zip(got, ref[shape]))
-                out[f"b4_{shape}_{name}"] = {**measure(b4(shape), "tangent_ens"), "equal": equal}
-            out[f"mc_config4b_{name}"] = mc_config4b()
-            out[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
-                                    if "registers" in ln or "spill" in ln][:40]
-        stepper._FNS["trace_tangent_ens_f32"] = own
     print(json.dumps(out), flush=True)
 
 
@@ -460,7 +412,6 @@ def inversion_solve(torch, pt, dev, z, r, env0, s, iters=150, lr=0.03, lam=1e-10
 
 def main():
     args = sys.argv[1:]
-    variants = "--variants" in args
     only = CASES
     if "--cases" in args:
         i = args.index("--cases")
@@ -470,16 +421,15 @@ def main():
         if unknown:
             print(f"unknown cases: {sorted(unknown)}", file=sys.stderr)
             return 2
-    args = [a for a in args if a != "--variants"]
     if len(args) == 2 and args[0] == "--child":
-        child(args[1], only, variants)
+        child(args[1], only)
         return 0
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    extra = ["--cases", ",".join(only)] + (["--variants"] if variants else [])
     for root in args:
-        rc = subprocess.run([sys.executable, __file__, "--child", root, *extra]).returncode
+        rc = subprocess.run([sys.executable, __file__, "--child", root, "--cases",
+                             ",".join(only)]).returncode
         if rc:
             return rc
     return 0
