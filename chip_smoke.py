@@ -149,6 +149,9 @@ SEG_X1 = 30e3  # range of the segment-mode comparisons other than the rough shap
 # path's shape (B3 at the TL demo and the array response, B1d at the rough
 # ensemble's)
 CMP_X1 = 30e3
+# range of the save-grid tangent kernel's comparisons on the tangent fans
+# with three seeds: no main path runs these fans
+SAVE_FANS_X1 = 10e3
 # the tangent kernel's fans compared over CMP_X1: no main path launches
 # them at 100 km (the eigenray solves run the Horner and config 1 fields)
 TAN_SHORT = ("clenshaw", "horner_curved_bottom")
@@ -164,7 +167,6 @@ SEG_OTHER_X1 = 10e3  # their range: across the rough field's first station
 # ENS_OTHER_X1
 ENS_OTHER_K = (96, 128)
 ENS_OTHER_X1 = 10e3
-ENS_LAYOUT = "a lane pair a ray"  # csrc/trace_tangent_ens.cu
 # Monte-Carlo eigenrays, the port's one-shot Newton against the JAX
 # package's regula falsi (tests/test_montecarlo.py:331-337)
 MC_ANGLE_DEG = 0.05
@@ -566,13 +568,14 @@ def compare_save_tangent(name, seed_scale, out_k, out_p):
 
 def save_tangent_phase(cx):
     """The save-grid tangent kernel against its plain version on every
-    tangent fan with three seeds (all at full width, over about ``CMP_X1``
-    at the fan's step and save spacing, ``cut_plan``: no main path runs
-    these fans, and the plain loop takes ~25 ms a step on the card, whatever
-    the fan's width), and in lockstep with the other kernels: its last row
-    is the final-state tangent kernel's output, its primal the fan kernel's
-    save grid without Kahan.  Returns (worst errors, plain ms of the first
-    case)."""
+    tangent fan with three seeds (all at full width, over about
+    ``SAVE_FANS_X1`` at the fan's step and save spacing, ``cut_plan``: no
+    main path runs these fans, and the plain loop takes 25-45 ms a step on
+    the card's host, whatever the fan's width; the seamount fan's death
+    codes 1, 2 and 3 all occur by then), and in lockstep with the other
+    kernels: its last row is the final-state tangent kernel's output, its
+    primal the fan kernel's save grid without Kahan.  Returns (worst
+    errors, plain ms of the first case)."""
     from pygenray_tpu_torch.integrate import _trace_tangent_save_impl
 
     torch, stepper = cx.torch, cx.stepper
@@ -580,7 +583,7 @@ def save_tangent_phase(cx):
     for name, env, ang, z0, x1, s in cx.tan_cases:
         p0, z0 = on_card(cx, launch_p0(cx.pt, env, ang)), on_card(cx, z0)
         mixed = on_card(cx, np.linspace(0.5, 1.5, len(ang)))
-        geom = cut_plan(x1, NUM_SAVE, s.dx)[0]
+        geom = cut_plan(x1, NUM_SAVE, s.dx, SAVE_FANS_X1)[0]
         for label, dp0, dz0, scale in (("dp0", 1.0, 0.0, 1.0),
                                        ("dz0", 0.0, 1.0, Z0_SEED_SCALE),
                                        ("mixed", mixed, -0.7, 1.5 + 0.7 * Z0_SEED_SCALE)):
@@ -865,14 +868,14 @@ def receiver_vs_jax_phase(cx):
             f"receiver side off the JAX package: {errs}")
 
 
-def cut_plan(x1, num_save, dx):
-    """The plan of a comparison cut to about ``CMP_X1`` (no longer than
-    ``x1``) at the same step and save spacing as the plan of ``(x1,
-    num_save, dx)``: ``(geom, saves)``."""
+def cut_plan(x1, num_save, dx, to=None):
+    """The plan of a comparison cut to about ``to`` (``CMP_X1`` by default;
+    no longer than ``x1``) at the same step and save spacing as the plan of
+    ``(x1, num_save, dx)``: ``(geom, saves)``."""
     from pygenray_tpu_torch.integrate import _plan
 
     seg_len = x1 / (num_save - 1)
-    nseg = max(1, round(CMP_X1 / seg_len))
+    nseg = max(1, round((CMP_X1 if to is None else to) / seg_len))
     if nseg >= num_save - 1:
         return (0.0, x1, *_plan(0.0, x1, num_save, dx)), num_save
     return (0.0, nseg * seg_len, *_plan(0.0, nseg * seg_len, nseg + 1, dx)), nseg + 1
@@ -1000,10 +1003,11 @@ def seg_kernel_phase(cx):
     realization: 96 terms (one buffer) and 128 (no buffer: each pick blends
     from device memory), 4,096 rays to 10 km.  The rough shape is held to
     the plain version with every ray over ``CMP_X1`` at the same step (2
-    saves), where the plain loop, whose time goes with its steps, takes under
-    a third of the time, and timed and bounded in full.  First a line of the layout
-    the launcher (``trace_fan_seg_layout``) takes for each K of both fit
-    ladders and for 128, which must be ``stepper.seg_layout``'s.  Returns
+    saves), where the plain loop, whose time goes with its steps, takes
+    under a third of the time, and timed and bounded in full.  First a
+    line of the layout the launcher (``trace_fan_seg_layout``) takes for
+    each K of both fit ladders and for 128, which must be
+    ``stepper.seg_layout``'s.  Returns
     (worst errors, the rough case's row for the times: kernel and plain ms,
     bound)."""
     from pygenray_tpu_torch.envdata import SEG_CHEB_LADDER, SEG_ORDER_LADDER, env_member
@@ -2438,8 +2442,8 @@ def main() -> int:
         "bound_by": sv["headline"]["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a ray tangent
         "ms_fan8192": sv["fan8192"]["kernel_event_ms"],
-        "plain_ms_fan8192": sv["fan8192"]["plain_ms"],  # compared over about CMP_X1
-        "plain_range_m_fan8192": cut_plan(R_MAX, NUM_SAVE, DX)[0][1],
+        "plain_ms_fan8192": sv["fan8192"]["plain_ms"],  # compared over about SAVE_FANS_X1
+        "plain_range_m_fan8192": cut_plan(R_MAX, NUM_SAVE, DX, SAVE_FANS_X1)[0][1],
         "bound_ms_fan8192": sv["fan8192"]["bound_ms"],
         "ms_tl_demo": sv["tl_demo"]["kernel_event_ms"],
         # the TL demo's and the array response's plain comparisons run at
@@ -2495,9 +2499,9 @@ def main() -> int:
         "kernel_ms_fan": cx.splits["config4b_fan"]["kernel_ms"],
         "bound_ms_fan": ens_rows["config4b_fan"]["bound_ms"],
         "bound_by_fan": ens_rows["config4b_fan"]["bound_by"],
-        # a lane pair a ray; K fixed or at run time and the rows' copy width at
-        # the main path's K (stepper.ens_layout)
-        "layout": ENS_LAYOUT,
+        "layout": "a lane pair a ray",  # csrc/trace_tangent_ens.cu
+        # K fixed or at run time and the rows' copy width at the main path's
+        # K (stepper.ens_layout)
         "k_layout": list(ens_rows["k_layout"]),
         "compared_k": [int(cx.env_mc.c_cheb.shape[-1]), *ENS_OTHER_K],
     }, {

@@ -76,7 +76,7 @@ from ..utils.cache import LRUCache, env_struct_key
 __all__ = [
     "kernel_supported", "tangent_supported", "trace_kernel", "trace_tangent_kernel",
     "trace_tangent_save_kernel", "trace_tangent_ensemble_kernel", "trace_coef_tangent_kernel",
-    "trace_coef_tangent_rd_kernel", "ens_layout", "LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES",
+    "trace_coef_tangent_rd_kernel", "LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES",
     "TANGENT_SAVE_LAUNCHES", "TANGENT_ENS_LAUNCHES", "COEF_TANGENT_LAUNCHES",
     "COEF_TANGENT_RD_LAUNCHES",
 ]
