@@ -152,8 +152,9 @@ CMP_X1 = 30e3
 # range of the save-grid tangent kernel's comparisons on the tangent fans
 # with three seeds: no main path runs these fans
 SAVE_FANS_X1 = 10e3
-# the tangent kernel's fans compared over CMP_X1: no main path launches
-# them at 100 km (the eigenray solves run the Horner and config 1 fields)
+# the fan and tangent kernels' fans compared over CMP_X1: no main path
+# launches them at 100 km (the headline fan and the eigenray solves run the
+# Horner and config 1 fields)
 TAN_SHORT = ("clenshaw", "horner_curved_bottom")
 SEG_S = 128  # segments of a segment fit (ops/seg.py SEG_S)
 # terms of the rough exact-order fits whose step tables take the layouts the
@@ -2108,6 +2109,8 @@ def main() -> int:
     )
     errs_all = []
     for name, env, ang, z0, x1, s in cases:
+        if name in TAN_SHORT:
+            x1 = CMP_X1
         h, sps, nseg = _plan(0.0, x1, NUM_SAVE, DX)
         p0 = torch.as_tensor(launch_p0(pt, env, ang), dtype=torch.float32, device=dev)
         z0 = torch.as_tensor(z0, dtype=torch.float32, device=dev)
