@@ -25,9 +25,8 @@ central differences and the JAX package's answers
 (``tests/fixtures/receiver_jax_f32.npz``, written by
 ``tests/fixtures/make_receiver_fixture.py``).  It times kernels, plain
 versions, eigenray latencies and the receiver-side calls, and holds the
-save-grid tangent kernel to its plain version once more at the shapes
-those calls gave it (the TL demo's and the array response's over about
-30 km: ``cut_plan``).  Monte Carlo: it holds the fan kernel's segment mode
+save-grid tangent kernel to its plain version once more at the full
+shapes those calls gave it.  Monte Carlo: it holds the fan kernel's segment mode
 (rough fields) to its plain version at the shape the rough ensemble gives
 it and at the step-table layouts of 96- and 128-term fits, and the
 ensemble forward-tangent kernel (``trace_tangent_ens.cu``) with config
@@ -146,8 +145,7 @@ MC_RAYS = 65_536
 ROUGH_DX = 100.0
 SEG_X1 = 30e3  # range of the segment-mode comparisons other than the rough shape
 # about the range of the plain comparisons that run shorter than the main
-# path's shape (B3 at the TL demo and the array response, B1d at the rough
-# ensemble's)
+# path's shape (B1d at the rough ensemble's)
 CMP_X1 = 30e3
 # range of the save-grid tangent kernel's comparisons on the tangent fans
 # with three seeds: no main path runs these fans
@@ -772,10 +770,8 @@ def receiver_paths_phase(cx):
             "impulse_response: non-finite or empty waveform")
     require(np.isfinite(ar.waveform).all() and rows == len(zd),
             f"array_response: {rows} of {len(zd)} depths received arrivals")
-    return types.SimpleNamespace(
-        arr_s=arr_s, tl_s=tl_s, ir_s=ir_s, ar_s=ar_s, tl_env=tl_env, tl_angles=tl_angles,
-        eig_angles=np.concatenate([r.arrivals.theta0 for r in ar.responses]), ir_env=ir_env,
-        launches_main=launches_main)
+    return types.SimpleNamespace(arr_s=arr_s, tl_s=tl_s, ir_s=ir_s, ar_s=ar_s,
+                                 launches_main=launches_main)
 
 
 def receiver_physics_phase(cx):
@@ -869,55 +865,79 @@ def receiver_vs_jax_phase(cx):
             f"receiver side off the JAX package: {errs}")
 
 
-def cut_plan(x1, num_save, dx, to=None):
-    """The plan of a comparison cut to about ``to`` (``CMP_X1`` by default;
-    no longer than ``x1``) at the same step and save spacing as the plan of
-    ``(x1, num_save, dx)``: ``(geom, saves)``."""
+def cut_plan(x1, num_save, dx, to):
+    """The plan of a comparison cut to about ``to`` (no longer than ``x1``)
+    at the same step and save spacing as the plan of ``(x1, num_save, dx)``:
+    ``(geom, saves)``."""
     from pygenray_tpu_torch.integrate import _plan
 
     seg_len = x1 / (num_save - 1)
-    nseg = max(1, round((CMP_X1 if to is None else to) / seg_len))
+    nseg = max(1, round(to / seg_len))
     if nseg >= num_save - 1:
         return (0.0, x1, *_plan(0.0, x1, num_save, dx)), num_save
     return (0.0, nseg * seg_len, *_plan(0.0, nseg * seg_len, nseg + 1, dx)), nseg + 1
 
 
+def save_tangent_shapes(cx):
+    """The save-grid tangent kernel's launches on the receiver side's main
+    paths, ``{label: (env, z0, p0, geom, settings)}``: ``arrival_amplitudes``
+    over the headline fan (102,400 rays, 490 steps, 50 saves), the TL demo's
+    (examples/tl_demo.py: 2,001 rays, 2,400 steps of 50 m, 301 saves) and the
+    array response's (examples/impulse_response_demo.py: its eigenrays, from
+    one ``array_response`` call, 1,995 steps of 50 m, 400 saves).  Built once
+    (``cx.sv_shapes``), early enough for ``profiler_split_phase``."""
+    if getattr(cx, "sv_shapes", None) is None:
+        from pygenray_tpu_torch.envdata import host_profile_tables
+        from pygenray_tpu_torch.models import munk_env
+
+        pt = cx.pt
+
+        def launch(env, src, angles, x1, num_save, st):
+            c_src = float(pt.bilinear_np(0.0, src, *host_profile_tables(env)))
+            p0 = on_card(cx, np.sin(np.radians(-angles)) / c_src)
+            return env, src, p0, (0.0, x1, *cx.plan(0.0, x1, num_save, st.dx)), st
+
+        s50 = pt.SolverSettings(dx=50.0)  # the demos' default step
+        ir_env = munk_env(r_max=100e3, nr=50, nz=1200)
+        ar = pt.array_response(1300.0, 0.0, np.linspace(1100.0, 1500.0, 16), 100e3, ir_env,
+                               center_frequency=75.0, bandwidth=37.5, num_rays=2048,
+                               max_angle=14.0, num_save=400, flatearth=False)
+        eig = np.concatenate([r.arrivals.theta0 for r in ar.responses])
+        cx.sv_shapes = {
+            "headline": launch(cx.env_h, SRC_DEPTH, np.linspace(-ANGLE_SPAN, ANGLE_SPAN, NUM_RAYS),
+                               R_MAX, NUM_SAVE, cx.settings),
+            "tl_demo": launch(munk_env(r_max=120e3, nr=50, nz=1200).env_data(flatearth=False),
+                              1000.0, np.linspace(-13.0, 13.0, 2001), 120e3, 301, s50),
+            "array_response_eigenrays": launch(ir_env.env_data(flatearth=False), 1300.0, eig,
+                                               100e3, 400, s50),
+        }
+    return cx.sv_shapes
+
+
 def save_tangent_times_phase(cx, rcv, plain_8192_ms):
-    """The save-grid tangent kernel at the shapes the receiver side gives
-    it: the headline fan's (102,400 rays, 490 steps, 50 saves), the TL
-    demo's (2,001 rays, 2,400 steps of 50 m, 301 saves) and the array
-    response's (its eigenrays, 2,000 steps of 50 m, 400 saves), with device
-    times (CUDA events, wrapper included) and bounds at each full shape, and
-    the host share of each full-width call.  Each is held to the plain
-    version as ``save_tangent_phase`` holds the 8,192-ray fans: the headline
-    fan at its full shape; the TL demo and the array response with every ray
-    but cut to about ``CMP_X1`` at the same step and save spacing
-    (``cut_plan``), where the plain loop, whose time goes with its steps and
-    not its rays, takes a quarter of the time.  Returns (the rows by shape,
-    the worst errors)."""
-    from pygenray_tpu_torch.envdata import host_profile_tables
+    """The save-grid tangent kernel at the shapes the receiver side gives it
+    (``save_tangent_shapes``) and at the 8,192-ray fan, with device times
+    (CUDA events, wrapper included) and bounds at each full shape, and the
+    host share of each full-width call.  Each receiver-side shape is held to
+    the plain version at its full shape, as ``save_tangent_phase`` holds the
+    8,192-ray fans (the TL demo's and the array response's plain loops take
+    about 90 and 65 s on the card's host: their time goes with the steps,
+    not the rays).  Returns (the rows by shape, the worst errors)."""
     from pygenray_tpu_torch.integrate import _trace_tangent_save_impl
 
-    torch, pt, stepper, s = cx.torch, cx.pt, cx.stepper, cx.settings
+    torch, stepper = cx.torch, cx.stepper
     rows, errs_all = {}, []
 
-    def shape(label, env, src, angles, x1, num_save, st, plain=True, cut=False):
-        h, sps, nseg = cx.plan(0.0, x1, num_save, st.dx)
-        geom = (0.0, x1, h, sps, nseg)
-        c_src = float(pt.bilinear_np(0.0, src, *host_profile_tables(env)))
-        p0 = on_card(cx, np.sin(np.radians(-angles)) / c_src)
+    def shape(label, env, src, p0, geom, st, plain=True):
         run = lambda: stepper.trace_tangent_save_kernel(env, src, p0, 1.0, geom, st)
         out_k = run()
         ms = events_ms(run)
-        b_ms, b_by = save_tangent_bound(out_k[0], env, sps)
-        rows[label] = {"rays": len(angles), "steps": sps * nseg, "saves": num_save,
+        b_ms, b_by = save_tangent_bound(out_k[0], env, geom[3])
+        rows[label] = {"rays": len(p0), "steps": geom[3] * geom[4], "saves": geom[4] + 1,
                        "kernel_event_ms": ms, "bound_ms": b_ms, "bound_by": b_by}
         if plain:
-            if cut:
-                geom, saves = cut_plan(x1, num_save, st.dx)
-                out_k = stepper.trace_tangent_save_kernel(env, src, p0, 1.0, geom, st)
-                rows[label]["compared_at"] = {"range_m": geom[1], "steps": geom[3] * geom[4],
-                                              "saves": saves}
+            rows[label]["compared_at"] = {"range_m": geom[1], "steps": geom[3] * geom[4],
+                                          "saves": geom[4] + 1}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out_p = _trace_tangent_save_impl(env, src, p0, 1.0, geom, st)
@@ -925,15 +945,14 @@ def save_tangent_times_phase(cx, rcv, plain_8192_ms):
             rows[label]["plain_ms"] = (time.perf_counter() - t0) * 1e3
             errs_all.append(compare_save_tangent(f"{label}_shape", 1.0, out_k, out_p))
 
-    shape("headline", cx.env_h, SRC_DEPTH, np.linspace(-ANGLE_SPAN, ANGLE_SPAN, NUM_RAYS),
-          R_MAX, NUM_SAVE, s)
-    shape("fan8192", cx.env_h, SRC_DEPTH, cx.eq_angles, R_MAX, NUM_SAVE, s, plain=False)
+    shapes = save_tangent_shapes(cx)
+    shape("headline", *shapes["headline"])
+    h, sps, nseg = cx.plan(0.0, R_MAX, NUM_SAVE, DX)
+    shape("fan8192", cx.env_h, SRC_DEPTH, on_card(cx, launch_p0(cx.pt, cx.env_h, cx.eq_angles)),
+          (0.0, R_MAX, h, sps, nseg), cx.settings, plain=False)
     rows["fan8192"]["plain_ms"] = plain_8192_ms  # compared in save_tangent_phase
-    s50 = pt.SolverSettings(dx=50.0)  # the demos' default step
-    shape("tl_demo", rcv.tl_env.env_data(flatearth=False), 1000.0, rcv.tl_angles, 120e3, 301, s50,
-          cut=True)
-    shape("array_response_eigenrays", rcv.ir_env.env_data(flatearth=False), 1300.0,
-          rcv.eig_angles, 100e3, 400, s50, cut=True)
+    shape("tl_demo", *shapes["tl_demo"])
+    shape("array_response_eigenrays", *shapes["array_response_eigenrays"])
     # the host share of each full-width call: its wall time less the device
     # time of its one save-grid tangent launch
     calls = {"arrival_amplitudes_headline": (rcv.arr_s, rows["headline"]["kernel_event_ms"]),
@@ -1653,11 +1672,12 @@ def profiler_split_phase(cx):
     """Where the range-dependent launches' time goes (``split_ms``): the
     fan kernel at BASELINE config 1, B6 at bench.py's 2D Jacobian, B6 and
     the 2-save fan launch at the inversion step's shapes (on the
-    inversion's starting field), and the ensemble tangent kernel at config
+    inversion's starting field), the ensemble tangent kernel at config
     4b's two shapes (``ens_shapes``, from one config 4b call; the step rows
-    built once, as the call builds them), early in the run: late in a long
-    run a profiling session has come back without the kernel's rows.  Sets
-    ``cx.splits``."""
+    built once, as the call builds them), and the save-grid tangent kernel
+    at the receiver side's three (``save_tangent_shapes``), early in the
+    run: late in a long run a profiling session has come back without the
+    kernel's rows.  Sets ``cx.splits``."""
     from pygenray_tpu_torch.adjoint import _CoefTimes, _directions
     from pygenray_tpu_torch.integrate import _ens_step_data
 
@@ -1688,6 +1708,10 @@ def profiler_split_phase(cx):
     for label, p0_4 in ens_shapes(cx, config4b_call(cx)).items():
         cx.splits[label] = split_ms(lambda p=p0_4: st.trace_tangent_ensemble_kernel(
             cx.env_mc, SRC_DEPTH, p, 1.0, g4, cx.settings, sd4), "tangent_ens")
+    for label, launch in save_tangent_shapes(cx).items():
+        cx.splits[f"b3_{label}"] = split_ms(
+            lambda a=launch: st.trace_tangent_save_kernel(a[0], a[1], a[2], 1.0, a[3], a[4]),
+            "tangent_save")
     emit("profiler_split", card=cx.smi, **cx.splits)
 
 
@@ -2450,7 +2474,7 @@ def main() -> int:
         "bound_ms_fan8192": sv["fan8192"]["bound_ms"],
         "ms_tl_demo": sv["tl_demo"]["kernel_event_ms"],
         # the TL demo's and the array response's plain comparisons run at
-        # every ray over about CMP_X1 (compared_at_*)
+        # their full shapes (compared_at_*)
         "plain_ms_tl_demo": sv["tl_demo"]["plain_ms"],
         "compared_at_tl_demo": sv["tl_demo"]["compared_at"],
         "bound_ms_tl_demo": sv["tl_demo"]["bound_ms"],
@@ -2458,6 +2482,15 @@ def main() -> int:
         "plain_ms_array_response_eigenrays": sv["array_response_eigenrays"]["plain_ms"],
         "compared_at_array_response_eigenrays": sv["array_response_eigenrays"]["compared_at"],
         "bound_ms_array_response_eigenrays": sv["array_response_eigenrays"]["bound_ms"],
+        "compared_at": sv["headline"]["compared_at"],
+        # torch.profiler's kernel rows at the three receiver-side shapes
+        "kernel_ms": cx.splits["b3_headline"]["kernel_ms"],
+        "kernel_ms_tl_demo": cx.splits["b3_tl_demo"]["kernel_ms"],
+        "kernel_ms_array_response_eigenrays": cx.splits["b3_array_response_eigenrays"]["kernel_ms"],
+        "layout": "one thread a ray, c and dc/dz in one loop",  # csrc/trace_tangent_save.cu
+        # K fixed or at run time at the receiver side's K (stepper.SAVE_FIXED_K)
+        "k_layout": "fixed" if int(cx.env_h.c_cheb.shape[-1]) in stepper.SAVE_FIXED_K
+                    else "run-time",
     }, {
         # the fan kernel's segment mode at the rough trace_ensemble's shape
         "name": "trace_fan_f32_segment",

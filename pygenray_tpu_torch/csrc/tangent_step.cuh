@@ -10,12 +10,15 @@
 //
 // The step reads the profile's two series through a row type:
 //   * `Rows` (constant coefficients, the launch-parameter tangents; the
-//     kernels B2 and B3) evaluates the c and dc/dz series in two loops;
+//     kernel B2) evaluates the c and dc/dz series in two loops;
 //   * `PairRows<KC>` (the same series, from rows the block staged in shared
 //     memory; the ensemble kernel B4) has two lanes of a warp carry one ray:
 //     the even lane evaluates c, the odd lane dc/dz, Horner or Clenshaw, and
 //     the pair swaps the results, so both lanes must step the same ray
 //     together (they hold the same state and take the same branches);
+//   * `FusedRows<KC>` and `FusedRegs<KC>` (one thread a ray, c and dc/dz
+//     in one loop, from shared memory or, up to K = TS_REG_MAX_K, from
+//     registers loaded once; the save-grid kernel B3);
 //   * `CoefRows<KC>` (coefficients that carry a tangent along a direction
 //     of the Chebyshev coefficients, weighted by a station's hat; Clenshaw
 //     only; the kernels B5 and B6) evaluates c and dc/dz in one loop.
@@ -37,6 +40,7 @@
 
 #define TS_MAX_K 256   // coefficient rows held in shared memory
 #define TS_MAX_KB 128  // bottom-angle series length
+#define TS_REG_MAX_K 32  // series held in registers (FusedRegs) up to this K
 #define TS_TINY 1e-30f
 #define TS_DEG2RAD 0.017453292519943295f  // float32(pi / 180)
 
@@ -72,6 +76,21 @@ template <int KC>
 struct PairRows {
   const float* c;
   const float* cp;
+};
+
+// the (c, dc/dz) series of a profile with constant coefficients, both
+// evaluated by one thread in one loop; KC > 0: K = KC at compile time
+template <int KC>
+struct FusedRows {
+  const float* c;
+  const float* cp;
+};
+
+// the same, the coefficients in registers (KC <= TS_REG_MAX_K)
+template <int KC>
+struct FusedRegs {
+  float c[KC];
+  float cp[KC];
 };
 
 // the (c, dc/dz) series with coefficients {c[k], hat * dc[k]}: perturbed
@@ -117,6 +136,74 @@ __device__ __forceinline__ void series2(const PairRows<KC>& r, int Kp, Dual u, D
 template <bool POW, int KC>
 __device__ __forceinline__ Dual series_c(const PairRows<KC>& r, int Kp, Dual u) {
   return dpoly<POW>(r.c, KC > 0 ? KC : Kp, u);
+}
+
+template <int KC>
+__device__ __forceinline__ FusedRegs<KC> fused_regs(const float* c, const float* cp) {
+  FusedRegs<KC> r;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    r.c[k] = c[k];
+    r.cp[k] = cp[k];
+  }
+  return r;
+}
+
+// both series of one thread in one loop, each recurrence in dhorner's or
+// dclenshaw's order, the loop unrolled U times (U >= K: in full, for
+// coefficients in registers; rows in shared memory take U = 4, so that the
+// compiler does not hold a whole step's rows in registers)
+template <bool POW, int KC, int U>
+__device__ __forceinline__ void dpoly2(const float* a, const float* b, int Kp, Dual u, Dual& ra,
+                                       Dual& rb) {
+  const int K = KC > 0 ? KC : Kp;
+  if (POW) {
+    Dual x = {0.0f + a[K - 1], 0.0f}, y = {0.0f + b[K - 1], 0.0f};
+#pragma unroll(U)
+    for (int k = K - 2; k >= 0; --k) {
+      x = x * u + a[k];
+      y = y * u + b[k];
+    }
+    ra = x;
+    rb = y;
+    return;
+  }
+  Dual b1 = {0.0f, 0.0f}, b2 = {0.0f, 0.0f}, q1 = {0.0f, 0.0f}, q2 = {0.0f, 0.0f};
+#pragma unroll(U)
+  for (int k = K - 1; k >= 1; --k) {
+    const Dual t = a[k] + 2.0f * u * b1 - b2;
+    b2 = b1;
+    b1 = t;
+    const Dual tp = b[k] + 2.0f * u * q1 - q2;
+    q2 = q1;
+    q1 = tp;
+  }
+  ra = a[0] + u * b1 - b2;
+  rb = b[0] + u * q1 - q2;
+}
+
+template <bool POW, int KC>
+__device__ __forceinline__ void series2(const FusedRows<KC>& r, int Kp, Dual u, Dual& c,
+                                        Dual& cp) {
+  dpoly2<POW, KC, 4>(r.c, r.cp, Kp, u, c, cp);
+}
+
+template <bool POW, int KC>
+__device__ __forceinline__ Dual series_c(const FusedRows<KC>& r, int Kp, Dual u) {
+  return dpoly<POW>(r.c, KC > 0 ? KC : Kp, u);
+}
+
+template <bool POW, int KC>
+__device__ __forceinline__ void series2(const FusedRegs<KC>& r, int, Dual u, Dual& c, Dual& cp) {
+  dpoly2<POW, KC, KC>(r.c, r.cp, KC, u, c, cp);
+}
+
+// the c series alone (the compiler drops the unused dc/dz recurrence)
+template <bool POW, int KC>
+__device__ __forceinline__ Dual series_c(const FusedRegs<KC>& r, int, Dual u) {
+  Dual c, cp;
+  dpoly2<POW, KC, KC>(r.c, r.cp, KC, u, c, cp);
+  return c;
 }
 
 // coefficient k of a series with its tangent, hat * dc[k] (the plain

@@ -28,8 +28,9 @@
 // of the step both lanes compute alike.  The block stages realization e's
 // rows of step k + 1 (mid-step and step-end c and dc/dz, 4 K floats, 1 KB
 // at K = 64) into one half of a shared-memory double buffer with
-// `cp.async` copies (16 bytes each when K is a multiple of 4 and the tables
-// are 16-byte aligned, else 4) while its threads step with step k's rows
+// `cp.async` copies (stage_rows.cuh, shared with trace_tangent_save.cu; 16
+// bytes each when K is a multiple of 4 and the tables are 16-byte aligned,
+// else 4) while its threads step with step k's rows
 // from the other half: one `cp.async.wait_group` and one barrier a step, so
 // no coefficient load of the dependent chain waits on L1 or L2.  The
 // launch-range rows and the bottom-angle series sit in shared memory too
@@ -60,8 +61,7 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
+#include "stage_rows.cuh"
 #include "tangent_step.cuh"
 
 #define TE_BLOCK 64
@@ -70,42 +70,6 @@
 namespace {
 
 using namespace tangent_step;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// one step's four rows, each K floats from offset `row` of the
-// realization's (nsteps, K) tables, into buf[0 .. 4K) by asynchronous copies
-// of the whole block (v16: 16 bytes a copy), as one commit group
-template <int KC>
-__device__ __forceinline__ void stage_rows(const float* cm, const float* cpm, const float* c1,
-                                           const float* cp1, size_t row, int Kp, bool v16,
-                                           float* buf) {
-  const int K = KC > 0 ? KC : Kp;
-  const int w = v16 ? 4 : 1;  // floats a copy
-  const int n = K / w;        // copies a row
-  for (int q = threadIdx.x; q < 4 * n; q += blockDim.x) {
-    const int r = q / n;
-    const int k = (q - r * n) * w;
-    const float* src = (r == 0 ? cm : (r == 1 ? cpm : (r == 2 ? c1 : cp1))) + row + k;
-    if (v16)
-      cp_async16(buf + r * K + k, src);
-    else
-      cp_async4(buf + r * K + k, src);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 
 template <bool POW, int KC>
 __global__ void __launch_bounds__(TE_BLOCK)
@@ -210,9 +174,7 @@ int launch_k(int K, A... a) {
 extern "C" int trace_tangent_ens_layout(int K, const void* cms, const void* cpms,
                                         const void* c1s, const void* cp1s) {
   const int fixed = K == 16 || K == 24 || K == 32 || K == 48 || K == 64 || K == 96;
-  const uintptr_t a = (uintptr_t)cms | (uintptr_t)cpms | (uintptr_t)c1s | (uintptr_t)cp1s;
-  const int v16 = K % 4 == 0 && (a & 15) == 0;
-  return fixed | (v16 << 1);
+  return fixed | (copy16_ok(K, cms, cpms, c1s, cp1s) << 1);
 }
 
 extern "C" int trace_tangent_ens_f32(const float* p0, const float* dp0, float z0,

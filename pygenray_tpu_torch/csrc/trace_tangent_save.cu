@@ -21,24 +21,41 @@
 // the forward kernel's save grid (csrc/trace_fan.cu with Kahan off).  Its
 // plain version is pygenray_tpu_torch/integrate.py:_trace_tangent_save_impl.
 //
-// Design.  One thread per ray, state and tangent in registers, as
-// trace_tangent.cu.  A dead ray is frozen: it takes no more steps, but every
-// remaining save row still receives its frozen state and tangent, as in the
-// plain version, so no output is left unwritten.  `dseg` is the first save
-// row at which the ray is dead (nseg + 1 for a survivor): alive_save[k] is
-// k < dseg.  The save grids are (nseg+1, B), so that a warp writes 32
-// consecutive floats of one row.  Blocks of 64 threads, as trace_tangent.cu:
-// eigenray-sized batches spread over more of the card's 132 SMs, and a
-// full-width fan has 1,600 blocks either way.
+// Design.  One thread a ray, its primal and tangent state in registers for
+// all steps, c and dc/dz evaluated in one loop (tangent_step.cuh's
+// `FusedRegs`, `FusedRows`), so that the two series' recurrences overlap in
+// the ray's dependent chain.  K = 16, 24, 32, 48, 64 and 96 (the spectral
+// fit ladder's orders + 1, envdata.py) are compiled with K fixed, so the
+// series unroll; up to K = TS_REG_MAX_K a range-independent field's
+// coefficients sit in registers, loaded once from shared memory (the
+// receiver side's fields are K = 16), above it they are read from shared
+// memory; any other K up to TS_MAX_K takes a run-time-K build.  A
+// range-dependent field's per-step rows are staged into a shared-memory
+// double buffer by `cp.async` copies (stage_rows.cuh, as the ensemble kernel
+// does), one barrier a step: a dead ray, or a thread past B, skips the
+// step's arithmetic but stays in the loop until no ray of the block is
+// alive.  A dead ray is frozen: every remaining save row still receives its
+// frozen state and tangent, as in the plain version, so no output is left
+// unwritten.  `dseg` is the first save row at which the ray is dead (nseg +
+// 1 for a survivor): alive_save[k] is k < dseg.  The save grids are (nseg+1,
+// B), so that a warp writes 32 consecutive floats of one row.  Blocks of 64
+// threads: the receiver side's small batches (the TL demo's 2,001 rays, the
+// array response's tens of eigenrays) spread over more of the card's SMs.
+// A lane pair a ray (c on one lane, dc/dz on the other, as the ensemble
+// kernel) measured 36-50 % slower at the receiver side's three shapes
+// (PERF.md).
 //
-// What bounds it on an H100: FP32 issue, as the final-state kernel (each Dual
-// product is three multiplies and an add); the six save grids are
-// 24 (nseg+1) B a ray, far below what the memory moves in the kernel's time.
+// What bounds it on an H100.  At the receiver side's small batches one
+// ray's chain of dependent Dual steps sets the time (the TL demo fills 32
+// blocks, the array response one); at a full-width fan (102,400 rays) FP32
+// issue does.  The six save grids are 24 (nseg+1) B a ray, far below what
+// the memory moves in the kernel's time.
 //
 // Rounding: built with -fmad=false and without fast math (ops/_build.py).
 
 #include <cuda_runtime.h>
 
+#include "stage_rows.cuh"
 #include "tangent_step.cuh"
 
 #define TSV_BLOCK 64
@@ -65,47 +82,109 @@ __device__ __forceinline__ void save_row(const SaveGrids& g, size_t at, const Ra
   g.dp[at] = s.p.t;
 }
 
-template <bool POW, bool RD>
+// a range-independent field's rows: in registers up to TS_REG_MAX_K, else
+// read from shared memory
+template <int KC, bool REG = (KC > 0 && KC <= TS_REG_MAX_K)>
+struct ConstRows {
+  using type = FusedRows<KC>;
+  __device__ static type load(const float* c, const float* cp) { return {c, cp}; }
+};
+
+template <int KC>
+struct ConstRows<KC, true> {
+  using type = FusedRegs<KC>;
+  __device__ static type load(const float* c, const float* cp) { return fused_regs<KC>(c, cp); }
+};
+
+template <bool POW, bool RD, int KC>
 __global__ void __launch_bounds__(TSV_BLOCK)
-trace_tangent_save_kernel(Params P, const float* __restrict__ p0v, const float* __restrict__ dp0v,
-                          const float* __restrict__ z0v, const float* __restrict__ dz0v,
-                          const float* __restrict__ ccoef, const float* __restrict__ cpcoef,
-                          const float* __restrict__ bacoef, StepInputs in, SaveGrids out,
-                          int* __restrict__ n_surf_out, int* __restrict__ n_bott_out,
-                          int* __restrict__ death_out, int* __restrict__ dseg_out) {
-  // the initial right-hand side's rows (every step's, range-independent)
-  __shared__ float s_c[TS_MAX_K];
-  __shared__ float s_cp[TS_MAX_K];
+trace_tangent_save_kernel(Params P, int v16, const float* __restrict__ p0v,
+                          const float* __restrict__ dp0v, const float* __restrict__ z0v,
+                          const float* __restrict__ dz0v, const float* __restrict__ ccoef,
+                          const float* __restrict__ cpcoef, const float* __restrict__ bacoef,
+                          StepInputs in, SaveGrids out, int* __restrict__ n_surf_out,
+                          int* __restrict__ n_bott_out, int* __restrict__ death_out,
+                          int* __restrict__ dseg_out) {
+  constexpr int KS = KC > 0 ? KC : TS_MAX_K;  // shared-memory row length
+  const int K = KC > 0 ? KC : P.K;
+  // the launch range's rows (every step's, range-independent), the
+  // bottom-angle series and, range-dependent, the double buffer of step
+  // rows: half (k & 1) holds step k's mid-step c, dc/dz, then step-end c,
+  // dc/dz
+  __shared__ float s_c[KS];
+  __shared__ float s_cp[KS];
   __shared__ float s_ba[TS_MAX_KB];
+  __shared__ __align__(16) float s_rows[RD ? 2 * 4 * KS : 4];
+  if constexpr (RD) {
+    stage_rows<KC>(in.cms, in.cpms, in.c1s, in.cp1s, 0, K, v16, s_rows);  // step 0's
+    cp_async_wait_all();
+  }
   load_series(P, ccoef, cpcoef, bacoef, s_c, s_cp, s_ba);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.B) return;
+  const bool act = i < P.B;
+  if (!RD && !act) return;  // range-independent: no barrier follows
 
-  RayState s = initial_state<POW>(s_c, s_cp, P, z0v[i], dz0v[i], p0v[i], dp0v[i]);
+  const typename ConstRows<KC>::type r0 = ConstRows<KC>::load(s_c, s_cp);
+  RayState s = initial_state<POW>(r0, P, act ? z0v[i] : 0.0f, act ? dz0v[i] : 0.0f,
+                                  act ? p0v[i] : 0.0f, act ? dp0v[i] : 0.0f);
+  s.alive = s.alive && act;
   int dseg = s.alive ? P.nseg + 1 : 0;
-  save_row(out, (size_t)i, s);
+  if (act) save_row(out, (size_t)i, s);
+  bool run = true;  // range-dependent: some ray of the block is alive
   for (int seg = 0; seg < P.nseg; ++seg) {
     const int k_end = (seg + 1) * P.sps;
-    for (int k = seg * P.sps; k < k_end && s.alive; ++k)
-      step<POW, RD>(P, in, s_c, s_cp, s_ba, k, s);
+    for (int k = seg * P.sps; k < k_end; ++k) {
+      if constexpr (RD) {
+        if (!run) break;  // the same for the whole block
+        const float* cur = s_rows + (k & 1) * 4 * K;
+        if (k + 1 < P.nsteps)  // step k + 1's rows into the other half
+          stage_rows<KC>(in.cms, in.cpms, in.c1s, in.cp1s, (size_t)(k + 1) * K, K, v16,
+                         s_rows + ((k & 1) ^ 1) * 4 * K);
+        using R = FusedRows<KC>;
+        if (s.alive) step_rows<POW>(P, in, R{cur, cur + K}, R{cur + 2 * K, cur + 3 * K}, s_ba, k, s);
+        cp_async_wait_all();
+        // step k's half read, step k + 1's written, by every thread
+        run = __syncthreads_or(s.alive);
+      } else {
+        if (!s.alive) break;
+        step_rows<POW>(P, in, r0, r0, s_ba, k, s);
+      }
+    }
     if (!s.alive) dseg = min(dseg, seg + 1);
-    save_row(out, (size_t)(seg + 1) * P.B + i, s);
+    if (act) save_row(out, (size_t)(seg + 1) * P.B + i, s);
   }
+  if (!act) return;
   n_surf_out[i] = s.n_surf;
   n_bott_out[i] = s.n_bott;
   death_out[i] = s.death;
   dseg_out[i] = dseg;
 }
 
-template <bool POW, bool RD>
-void launch(const Params& P, cudaStream_t s, const float* p0, const float* dp0, const float* z0,
-            const float* dz0, const float* ccoef, const float* cpcoef, const float* bacoef,
-            const StepInputs& in, const SaveGrids& out, int* n_surf, int* n_bott, int* death,
-            int* dseg) {
+template <bool POW, bool RD, int KC>
+int launch(const Params& P, int v16, cudaStream_t s, const float* p0, const float* dp0,
+           const float* z0, const float* dz0, const float* ccoef, const float* cpcoef,
+           const float* bacoef, const StepInputs& in, const SaveGrids& out, int* n_surf,
+           int* n_bott, int* death, int* dseg) {
   const dim3 grid((P.B + TSV_BLOCK - 1) / TSV_BLOCK);
-  trace_tangent_save_kernel<POW, RD><<<grid, TSV_BLOCK, 0, s>>>(
-      P, p0, dp0, z0, dz0, ccoef, cpcoef, bacoef, in, out, n_surf, n_bott, death, dseg);
+  trace_tangent_save_kernel<POW, RD, KC><<<grid, TSV_BLOCK, 0, s>>>(
+      P, v16, p0, dp0, z0, dz0, ccoef, cpcoef, bacoef, in, out, n_surf, n_bott, death, dseg);
+  return (int)cudaGetLastError();
+}
+
+// K fixed at compile time for the spectral fit ladder's lengths
+// (envdata.py: orders 15, 23, 31, 47, 63, 95); any other K at run time
+template <bool POW, bool RD, class... A>
+int launch_k(int K, A... a) {
+  switch (K) {
+    case 16: return launch<POW, RD, 16>(a...);
+    case 24: return launch<POW, RD, 24>(a...);
+    case 32: return launch<POW, RD, 32>(a...);
+    case 48: return launch<POW, RD, 48>(a...);
+    case 64: return launch<POW, RD, 64>(a...);
+    case 96: return launch<POW, RD, 96>(a...);
+  }
+  return launch<POW, RD, 0>(a...);
 }
 
 }  // namespace
@@ -128,15 +207,15 @@ extern "C" int trace_tangent_save_f32(
                                b_span);
   const StepInputs in = {b0s, b1s, xoob, cms, cpms, c1s, cp1s};
   const SaveGrids out = {T, z, p, dT, dz, dp};
+  const int v16 = rd ? copy16_ok(K, cms, cpms, c1s, cp1s) : 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define TSV_ARGS P, s, p0, dp0, z0, dz0, ccoef, cpcoef, bacoef, in, out, n_surf, n_bott, death, dseg
+#define TSV_ARGS K, P, v16, s, p0, dp0, z0, dz0, ccoef, cpcoef, bacoef, in, out, n_surf, n_bott, \
+                 death, dseg
   if (use_pow) {
-    if (rd) launch<true, true>(TSV_ARGS);
-    else launch<true, false>(TSV_ARGS);
-  } else {
-    if (rd) launch<false, true>(TSV_ARGS);
-    else launch<false, false>(TSV_ARGS);
+    if (rd) return launch_k<true, true>(TSV_ARGS);
+    return launch_k<true, false>(TSV_ARGS);
   }
+  if (rd) return launch_k<false, true>(TSV_ARGS);
+  return launch_k<false, false>(TSV_ARGS);
 #undef TSV_ARGS
-  return (int)cudaGetLastError();
 }

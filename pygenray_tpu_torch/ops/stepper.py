@@ -16,8 +16,12 @@ Counterparts of the six Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py
   (``trace_pallas_tangent_save``, :1194), in ``csrc/trace_tangent_save.cu``:
   the tangent kernel's step (shared through ``csrc/tangent_step.cuh``),
   seeded in ``p0`` and ``z0``, with the state and its tangent written at
-  every save point; the engine of autograd through ``trace`` and of the
-  receiver side (amplitudes, impulse responses, transmission-loss fields).
+  every save point, c and dc/dz in one loop, K compiled fixed for the
+  spectral fit ladder's lengths (``SAVE_FIXED_K``; a range-independent
+  field's coefficients in registers), a range-dependent field's step rows
+  staged in shared memory as the ensemble kernel's; the engine of autograd
+  through ``trace`` and of the receiver side (amplitudes, impulse
+  responses, transmission-loss fields).
 * ``trace_tangent_ensemble_kernel`` — the ensemble forward-tangent kernel
   (``trace_pallas_tangent_ensemble``, :1258), in
   ``csrc/trace_tangent_ens.cu``: the final-state tangent kernel's step
@@ -122,6 +126,11 @@ def seg_layout(Ks: int, S: int) -> str:
 # trace_tangent_ens.cu launch_k): the spectral fit ladder's lengths
 # (envdata.make_env_data, orders + 1) up to 96
 ENS_FIXED_K = (16, 24, 32, 48, 64, 96)
+
+
+# K the save-grid tangent kernel is compiled for with K fixed (csrc
+# trace_tangent_save.cu launch_k): the same ladder
+SAVE_FIXED_K = ENS_FIXED_K
 
 
 def ens_layout(K: int, tables) -> tuple:

@@ -45,6 +45,7 @@ from pygenray_tpu_torch.integrate import (
     _trace_tangent_impl,
 )
 from pygenray_tpu_torch.ops import stepper
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 _spec = importlib.util.spec_from_file_location("make_adjoint_fixture",

@@ -25,6 +25,7 @@ import pygenray_tpu as jp
 import pygenray_tpu_torch as tp
 from pygenray_tpu_torch.envdata import DATA_FIELDS, META_FIELDS
 from pygenray_tpu_torch.ops import stepper
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 F64 = torch.float64
 

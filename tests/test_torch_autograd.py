@@ -29,6 +29,7 @@ import pygenray_tpu_torch as tp
 from pygenray_tpu_torch.integrate import SolverSettings, trace
 from pygenray_tpu_torch.ops import stepper
 from torch_scan_reference import B, DX, NUM_SAVE, X1, jax_env, port_env, scan_jvp
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 # short and coarse: the plain Dual loop costs ~20 ms a step on a CPU.  The
 # case is torch_scan_reference.py's (a range-dependent Munk field over a

@@ -29,6 +29,7 @@ import pygenray_tpu as jp
 import pygenray_tpu_torch as tp
 from pygenray_tpu.rootfind import rootfind_update as j_rootfind_update
 from pygenray_tpu_torch.rootfind import rootfind_update
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 R = 30e3
 DX = 1000.0

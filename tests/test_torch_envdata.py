@@ -26,6 +26,7 @@ from pygenray_tpu_torch.envdata import (
     mirror_env_data as tmirror,
     resolve_dtype,
 )
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -19,6 +19,7 @@ from pygenray_tpu.integrate import SolverSettings as JSettings, trace as j_trace
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent / "fixtures"))
 import random_field  # noqa: E402
+from torch_fixtures import one_blas_thread  # noqa: E402, F401
 
 # Both packages evaluate the same float64 Chebyshev series step for step;
 # XLA may fuse a multiply and an add that torch rounds apart (about 1e-16

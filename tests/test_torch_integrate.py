@@ -27,6 +27,7 @@ from pygenray_tpu_torch.integrate import (
     _trace_impl,
     trace,
 )
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 TS_TOL = 1e-9
 ZS_TOL = 1e-6

@@ -51,6 +51,7 @@ from pygenray_tpu_torch.models import internal_waves as tiw
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent / "fixtures"))
 import rough_field  # noqa: E402
+from torch_fixtures import one_blas_thread  # noqa: E402, F401
 
 
 def rough_tables(E, nz, nr, r_max):

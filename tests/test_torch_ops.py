@@ -25,6 +25,7 @@ import pygenray_tpu_torch.ops.interp as tinterp
 import pygenray_tpu_torch.ops.seg as tseg
 import pygenray_tpu_torch.utils.xrlite as txr
 from pygenray_tpu_torch.utils.cache import LRUCache, env_struct_key
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 TOL = 1e-12
 F64 = torch.float64

@@ -6,6 +6,7 @@ is exercised on the card, by ``chip_smoke.split_ms``."""
 import torch
 
 from pygenray_tpu_torch.utils.profiling import Timer, timed
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 
 class TestProfilingUtils:

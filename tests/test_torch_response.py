@@ -6,7 +6,8 @@
   exactly (bit for bit; both are the same numpy code).
 * ``array_response`` and ``impulse_response`` against the JAX package on one
   small isovelocity case in float64 (fan, eigenray solve, amplitude launch,
-  synthesis): the same eigenrays, amplitudes within 1e-6 relative and
+  synthesis; the JAX package's array response from
+  ``fixtures/port_tests_jax.npz``): the same eigenrays, amplitudes within 1e-6 relative and
   travel times within 1e-9 s (two float64 traces of straight rays), the
   waveforms within 1e-5 of the largest sample; and the closed forms (direct
   slant time, 1/s amplitude) as ``tests/test_response.py`` holds them.
@@ -15,6 +16,7 @@
 
 import dataclasses
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ import torch
 import pygenray_tpu as jp
 import pygenray_tpu_torch as tp
 from pygenray_tpu.amplitudes import Arrivals as JArrivals
+from torch_fixtures import jax_answers, one_blas_thread  # noqa: F401
 
 FC, BW = 100.0, 40.0
 
@@ -151,13 +154,25 @@ def _slab():
     return np.full((r.size, z.size), C0), r, z, np.full(r.size, 2000.0), r
 
 
+def _jax_array_response():
+    """The JAX package's ``array_response(1000.0, 0.0, ZD, RANGE, ...)`` on
+    the slab in float64 (its ``t``, ``waveform`` and each receiver's
+    ``Arrivals``), from ``fixtures/port_tests_jax.npz``: computed live it
+    costs a JAX compile of about 15 s in every test process
+    (``fixtures/make_port_tests_fixture.py`` writes it)."""
+    fx = jax_answers("response", c0=C0, range=RANGE, zd=ZD, e2e=E2E)
+    fields = [f.name for f in dataclasses.fields(JArrivals)]
+    responses = [types.SimpleNamespace(arrivals=JArrivals(
+        **{f: fx[f"d{d}/{f}"] for f in fields if f"d{d}/{f}" in fx})) for d in range(len(ZD))]
+    return types.SimpleNamespace(t=fx["t"], waveform=fx["waveform"], responses=responses)
+
+
 @pytest.fixture(scope="module")
 def end_to_end():
     """(JAX array response, port array response, port impulse response at
     the first depth), float64, the same tables."""
-    je = jp.make_env_data(*_slab(), dtype=np.float64)
     te = tp.make_env_data(*_slab(), dtype=torch.float64, device="cpu")
-    return (jp.array_response(1000.0, 0.0, ZD, RANGE, je, **E2E),
+    return (_jax_array_response(),
             tp.array_response(1000.0, 0.0, ZD, RANGE, te, **E2E),
             tp.impulse_response(1000.0, 0.0, ZD[0], RANGE, te, **E2E))
 

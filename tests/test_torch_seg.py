@@ -40,6 +40,7 @@ from pygenray_tpu_torch.ops import stepper
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent / "fixtures"))
 from rough_field import rough_tables  # noqa: E402
+from torch_fixtures import one_blas_thread  # noqa: E402, F401
 
 X1, DX = 20e3, 500.0
 ANGLES = np.linspace(-16.0, 16.0, 24)

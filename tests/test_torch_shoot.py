@@ -25,6 +25,7 @@ from pygenray_tpu.models import munk_env as j_munk_env
 from pygenray_tpu.utils.xrlite import DataArray as JDA
 from pygenray_tpu_torch.models import munk_env as t_munk_env
 from pygenray_tpu_torch.utils.xrlite import DataArray as TDA
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "fixtures"

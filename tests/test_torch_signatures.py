@@ -13,6 +13,7 @@ import pytest
 
 import pygenray_tpu as pr
 import pygenray_tpu_torch as pt
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 SHARED = sorted(set(pr.__all__) & set(pt.__all__))
 CALLABLES = [n for n in SHARED if callable(getattr(pr, n)) and n != "SolverSettings"]

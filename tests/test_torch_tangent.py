@@ -9,7 +9,9 @@ rules it is built from.
   (``trace_pallas_tangent`` in interpret mode, one run: the interpreter is
   slow); the range-dependent case runs ``jax.jvp`` through the JAX
   package's scan without Kahan, the plain reference its own kernel tests
-  use (``tests/test_custom_jvp.py``).  As there, the monomial (Horner) path
+  use (``tests/test_custom_jvp.py``), its answers read from
+  ``fixtures/port_tests_jax.npz`` (``fixtures/make_port_tests_fixture.py``
+  runs ``_jax_scan_tangent`` for it).  As there, the monomial (Horner) path
   is off (the interpreter contracts fused multiply-adds where torch does
   not).
 * Against central differences of the port's float64 forward trace.
@@ -41,6 +43,7 @@ from pygenray_tpu_torch.integrate import (
 )
 from pygenray_tpu_torch.ops import dual as D
 from pygenray_tpu_torch.ops import stepper
+from torch_fixtures import jax_answers, one_blas_thread  # noqa: F401
 
 X1, DX = 20e3, 1000.0
 ANGLES = np.linspace(-16.0, 16.0, 48)
@@ -87,21 +90,21 @@ def _jax_scan_tangent(je, p0):
 @pytest.fixture(scope="module")
 def tangents():
     """Per kind: the port's plain tangent and the JAX package's (the
-    interpret kernel for "ri", the scan's jvp for "rd"), both at float32 on
-    the same numpy inputs."""
+    interpret kernel for "ri", the scan's jvp for "rd" from the fixture),
+    both at float32 on the same numpy inputs."""
     out = {}
     for kind in ("ri", "rd"):
         args = _tables(kind)
-        je = dataclasses.replace(jp.make_env_data(*args, dtype=jnp.float32), poly_ok=False)
         te = dataclasses.replace(tp.make_env_data(*args, dtype=torch.float32, device="cpu"),
                                  poly_ok=False)
         assert te.range_dependent == (kind == "rd")
-        p0 = jnp.asarray(_p0(), jnp.float32)
         if kind == "ri":
-            ref = trace_pallas_tangent(je, 1300.0, p0, 1.0, _geom(),
-                                       JSettings(dx=DX, kahan=False), interpret=True)
-        else:
-            ref = _jax_scan_tangent(je, p0)
+            je = dataclasses.replace(jp.make_env_data(*args, dtype=jnp.float32), poly_ok=False)
+            ref = trace_pallas_tangent(je, 1300.0, jnp.asarray(_p0(), jnp.float32), 1.0,
+                                       _geom(), JSettings(dx=DX, kahan=False), interpret=True)
+        else:  # _jax_scan_tangent's answers, from the fixture
+            fx = jax_answers("tangent_rd", x1=X1, dx=DX, angles=ANGLES, nr=NR)
+            ref = [fx[str(j)] for j in range(9)]
         got = _trace_tangent_impl(te, 1300.0, _p0(), 1.0, _geom(), SolverSettings(dx=DX))
         out[kind] = (te, [np.asarray(a) for a in ref], got)
     return out

@@ -38,6 +38,7 @@ from pygenray_tpu_torch.integrate import (
     _trace_tangent_impl,
 )
 from pygenray_tpu_torch.ops import stepper
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 X1, DX = 10e3, 500.0
 ANGLES = np.array([[-20.0, -15.0, -9.0, -3.0, 2.0, 8.0, 14.5, 19.0],

@@ -25,6 +25,7 @@ plain version there.
 """
 
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +43,7 @@ from pygenray_tpu_torch.integrate import (
 )
 from pygenray_tpu_torch.ops import _build, stepper
 from torch_scan_reference import B, DX, GEOM, NUM_SAVE, jax_env, port_env, scan_jvp
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 S = SolverSettings(dx=DX)
 GRIDS = ("ts", "zs", "ps")
@@ -260,3 +262,15 @@ def test_a_launch_without_a_compiler_raises(monkeypatch):
     monkeypatch.setattr(_build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         stepper._kernel_fn("trace_tangent_save_f32")
+
+
+def test_fixed_k_list_mirrors_the_launcher():
+    """The K the kernel is compiled for with K fixed (``launch_k`` in
+    ``csrc/trace_tangent_save.cu``) are ``stepper.SAVE_FIXED_K``: the
+    spectral fit ladder's lengths (envdata.py, orders + 1) up to 96; the
+    range-dependent step rows come through the ensemble kernel's header."""
+    src = (_build.CSRC / "trace_tangent_save.cu").read_text()
+    cases = [int(k) for k in re.findall(r"case (\d+): return launch<POW, RD, \1>", src)]
+    assert tuple(cases) == stepper.SAVE_FIXED_K
+    assert stepper.SAVE_FIXED_K == tuple(o + 1 for o in (15, 23, 31, 47, 63, 95))
+    assert '#include "stage_rows.cuh"' in src

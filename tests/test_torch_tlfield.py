@@ -25,6 +25,7 @@ from pygenray_tpu.tlfield import _classified_flip_counts as j_flip_counts
 from pygenray_tpu_torch.envdata import DATA_FIELDS, META_FIELDS
 from pygenray_tpu_torch.ops import stepper
 from pygenray_tpu_torch.tlfield import _classified_flip_counts
+from torch_fixtures import one_blas_thread  # noqa: F401
 
 C0 = 1500.0
 

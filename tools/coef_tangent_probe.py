@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of the inversion's kernels (B6 and the range-dependent fan,
 B1c), of the other coefficient-tangent launches, of the fan kernel's
-segment mode (B1d) and of the ensemble tangent kernel (B4), for several
+segment mode (B1d), of the ensemble tangent kernel (B4) and of the
+save-grid tangent kernel (B3) at the receiver side's shapes, for several
 checkouts of the port on one card, with the wrapper's share split off.
 
     python3 tools/coef_tangent_probe.py [--cases A,B,...] ROOT [ROOT ...]
@@ -64,6 +65,22 @@ The cases:
   512 angles over ±14°, and a Newton batch, 16 x ``MC_BRACKET_CAP``
   candidates (each realization's arrivals from the warm call, the fan's
   last angle in the unused lanes, as ``chip_smoke.ens_tangent_phase``);
+* ``b3_tl``, ``b3_array``, ``b3_headline``: ``trace_tangent_save_kernel``
+  at the three shapes the receiver side gives it (``chip_smoke.py``'s
+  ``save_tangent_times_phase``): ``examples/tl_demo.py``'s field and fan
+  (``munk_env(r_max=120e3, nr=50, nz=1200)``, 2,001 angles over ±13°, source
+  at 1000 m, 120 km, 301 saves, dx = 50 m: 2,400 steps); the eigenrays of
+  ``examples/impulse_response_demo.py``'s ``array_response`` (100 km, 16
+  receivers at 1100-1500 m, source at 1300 m, 400 saves, dx = 50 m: 1,995
+  steps), taken from one warm call; and ``arrival_amplitudes`` over the
+  headline fan (102,400 rays over ±15°, 100 km, 50 saves, dx = 200 m).  The
+  device rows other than the kernel's are the wrapper's, among them its six
+  save-grid transposes;
+* ``receiver_walls``: the wall times of the two calls behind ``b3_tl`` and
+  ``b3_array``, ``transmission_loss_field`` at ``examples/tl_demo.py``'s
+  parameters (75 Hz, 251 depths x 300 ranges) and ``array_response`` at
+  ``examples/impulse_response_demo.py``'s (2,048-ray fan, 75 Hz, bandwidth
+  37.5 Hz), synchronized, the median of 5 after a warm call;
 * ``b2_fan8192``: ``trace_tangent_kernel`` over 8,192 rays of the headline
   field, a kernel whose code these redesigns do not touch, as a control for
   the machine;
@@ -94,7 +111,8 @@ N_LAUNCH = 20
 # every case, in the order they run; --cases picks some of them
 CASES = ("b5_bench", "b1d_rough", "b1d_rough_narrow", "b1d_ri_pow", "b1d_ri_cheb", "b6_2d",
          "b6_inversion", "b1c_inversion", "b1c_config1", "mc_config4b", "b4_fan", "b4_newton",
-         "b2_fan8192", "inversion_solve")
+         "b3_tl", "b3_array", "b3_headline", "receiver_walls", "b2_fan8192", "inversion_solve")
+B3_CASES = ("b3_tl", "b3_array", "b3_headline")
 
 
 def child(root, only=CASES):
@@ -290,8 +308,40 @@ def child(root, only=CASES):
                 "fan": p0_of(c_src, np.broadcast_to(fan, (16, 512))),
                 "newton": p0_of(c_src, newton)}
 
+    def f_receiver():
+        """the receiver side's save-grid tangent launches (chip_smoke.py's
+        save_tangent_times_phase): the TL demo's, the array response's
+        eigenrays and the headline fan's, each (env, z0, p0, geom, settings)"""
+        from pygenray_tpu_torch.envdata import host_profile_tables
+        from pygenray_tpu_torch.models import munk_env
+
+        def launch(env, src, angles, x1, num_save, s):
+            c_src = float(pt.bilinear_np(0.0, src, *host_profile_tables(env)))
+            return (env, src, p0_of(c_src, angles), (0.0, x1, *_plan(0.0, x1, num_save, s.dx)),
+                    s)
+
+        s50 = pt.SolverSettings(dx=50.0)
+        ir = munk_env(r_max=100e3, nr=50, nz=1200)
+        ar = pt.array_response(SRC, 0.0, np.linspace(1100.0, 1500.0, 16), 100e3, ir,
+                               center_frequency=75.0, bandwidth=37.5, num_rays=2048,
+                               max_angle=14.0, num_save=400, flatearth=False)
+        eig = np.concatenate([r.arrivals.theta0 for r in ar.responses])
+        h = field("headline")
+        return {
+            "b3_tl": launch(munk_env(r_max=120e3, nr=50, nz=1200).env_data(flatearth=False),
+                            1000.0, np.linspace(-13.0, 13.0, 2001), 120e3, 301, s50),
+            "b3_array": launch(ir.env_data(flatearth=False), SRC, eig, 100e3, 400, s50),
+            "b3_headline": launch(h["env"], SRC, np.linspace(-15.0, 15.0, 102_400), 100e3, 50,
+                                  h["s"]),
+        }
+
     FIELDS = {"headline": f_headline, "jac2d": f_jac2d, "inversion": f_inversion,
-              "config1": f_config1, "rough": f_rough, "seg_ri": f_seg_ri, "config4b": f_config4b}
+              "config1": f_config1, "rough": f_rough, "seg_ri": f_seg_ri, "config4b": f_config4b,
+              "receiver": f_receiver}
+
+    def b3(name):
+        env, src, p0, g, s = field("receiver")[name]
+        return lambda: stepper.trace_tangent_save_kernel(env, src, p0, 1.0, g, s)
 
     def b4(shape):
         f = field("config4b")
@@ -321,6 +371,36 @@ def child(root, only=CASES):
         return {"median_ms": statistics.median(runs), "runs_ms": runs, "launches": launches,
                 "path": f["path"], "arrivals": f["arrivals"]}
 
+    def receiver_walls():
+        """the wall times of transmission_loss_field and array_response at
+        the demos' parameters (synchronized, median of 5 after a warm call)"""
+        import time
+
+        from pygenray_tpu_torch.models import munk_env
+
+        tl_env, ir_env = munk_env(r_max=120e3, nr=50, nz=1200), munk_env(r_max=100e3, nr=50,
+                                                                         nz=1200)
+        calls = {
+            "transmission_loss_field": lambda: pt.transmission_loss_field(
+                1000.0, 0.0, np.linspace(-13.0, 13.0, 2001), 120e3, tl_env, frequency=75.0,
+                depths=np.linspace(0.0, 5000.0, 251), num_range=301, flatearth=False),
+            "array_response": lambda: pt.array_response(
+                SRC, 0.0, np.linspace(1100.0, 1500.0, 16), 100e3, ir_env, center_frequency=75.0,
+                bandwidth=37.5, num_rays=2048, max_angle=14.0, num_save=400, flatearth=False),
+        }
+        out = {}
+        for name, call in calls.items():
+            call()
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            out[name] = {"median_ms": statistics.median(runs), "runs_ms": runs}
+        return out
+
     # name: (what a launch runs, the kernel's name in the profiler's rows)
     cases = {
         "b5_bench": lambda: (lambda h=field("headline"): stepper.trace_coef_tangent_kernel(
@@ -347,6 +427,7 @@ def child(root, only=CASES):
         "b4_newton": lambda: (b4("newton"), "tangent_ens"),
         "b2_fan8192": lambda: (lambda h=field("headline"): stepper.trace_tangent_kernel(
             h["env"], SRC, h["p8"], 1.0, h["g"], h["s"]), "trace_tangent"),
+        **{name: (lambda name=name: (b3(name), "tangent_save")) for name in B3_CASES},
     }
 
     out = {"root": root, "package": pt.__file__, "card": torch.cuda.get_device_name(0)}
@@ -355,12 +436,18 @@ def child(root, only=CASES):
             continue
         if name == "mc_config4b":
             out[name] = mc_config4b()
+        elif name == "receiver_walls":
+            out[name] = receiver_walls()
         elif name == "inversion_solve":
             f = field("inversion")
             out[name] = inversion_solve(torch, pt, dev, f["z"], f["r"], f["env"], f["s"])
         else:
             fn, kernel = cases[name]()
             out[name] = measure(fn, kernel)
+            if name in B3_CASES:
+                env, _, p0, g, _ = field("receiver")[name]
+                out[name].update(rays=len(p0), steps=g[3] * g[4], saves=g[4] + 1,
+                                 K=int(env.c_cheb.shape[-1]), horner=bool(env.poly_ok))
     if "b1d_rough" in out:
         out["b1d_rough"]["seg_terms"] = int(field("rough")["env"].c_seg.shape[-2])
     print(json.dumps(out), flush=True)
