@@ -9,8 +9,8 @@ It builds the port's CUDA kernels from ``pygenray_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel) and holds each against its plain PyTorch
 version on the card: the forward fan kernel (``trace_fan.cu``,
 range-independent and range-dependent), the forward-tangent kernel
-(``trace_tangent.cu``) and the save-grid forward-tangent kernel
-(``trace_tangent_save.cu``).  It drives the main paths through them: the
+(``trace_tangent.cu``, at config 3's batch too) and the save-grid
+forward-tangent kernel (``trace_tangent_save.cu``).  It drives the main paths through them: the
 headline 102,400-ray Munk fan (``shoot_rays``), BASELINE config 1's
 range-dependent fan at full width, the eigenray search
 (``find_eigenrays`` / ``find_eigenrays_batch``) on BASELINE configs 2 and 3
@@ -150,9 +150,9 @@ CMP_X1 = 30e3
 # range of the save-grid tangent kernel's comparisons on the tangent fans
 # with three seeds: no main path runs these fans
 SAVE_FANS_X1 = 10e3
-# the fan and tangent kernels' fans compared over CMP_X1: no main path
-# launches them at 100 km (the headline fan and the eigenray solves run the
-# Horner and config 1 fields)
+# the fan kernel's fans compared over CMP_X1: no main path launches them at
+# 100 km (the headline fan runs the Horner field); the final-state tangent
+# kernel is held on them at the full 100 km
 TAN_SHORT = ("clenshaw", "horner_curved_bottom")
 SEG_S = 128  # segments of a segment fit (ops/seg.py SEG_S)
 # terms of the rough exact-order fits whose step tables take the layouts the
@@ -2228,14 +2228,13 @@ def main() -> int:
 
     # ---- phase 6: the tangent kernel vs its plain version ------------------
     # final state only, on the eigenray solver's plan (2 saves); the same
-    # fans as phase 3 plus BASELINE config 1's range-dependent field
+    # fans as phase 3 plus BASELINE config 1's range-dependent field, every
+    # one over its full range
     env_rd, s_rd, tan_cases = cx.env_rd, cx.s_rd, cx.tan_cases
     require(stepper.tangent_supported(env_rd, settings),
             "config 1 env is not covered by the tangent kernels")
     tan_errs, tan_plain_ms = [], {}
     for name, env, ang, z0, x1, s in tan_cases:
-        if name in TAN_SHORT:
-            x1 = CMP_X1
         h2, sps2, nseg2 = _plan(0.0, x1, 2, s.dx)
         g2 = (0.0, x1, h2, sps2, nseg2)
         p0 = torch.as_tensor(launch_p0(pt, env, ang), dtype=torch.float32, device=dev)
@@ -2253,7 +2252,6 @@ def main() -> int:
         if name in ("horner", "range_dependent_config1"):
             res_f = stepper.trace_kernel(env, z0, p0, g2, dataclasses.replace(s, kahan=False))
             lockstep(name, out_k, res_f)
-    tan_err = {f: max(e[f] for e in tan_errs) for f in TAN_FIELDS}
 
     phase_done("6 tangent kernel vs plain")
 
@@ -2308,7 +2306,8 @@ def main() -> int:
 
     # ---- phase 9: times of the new paths ------------------------------------
     # the tangent kernel at config 3's batch (its eigenray angles, the
-    # solver's 2-save plan) and at the 8,192-ray fan
+    # solver's 2-save plan), held to its plain version there, and at the
+    # 8,192-ray fan
     tf = eig["timefront"][0][0]
     th3 = np.concatenate([tf.launch_angles[i] for i in range(64) if len(tf.launch_angles[i])])
     p0_3 = torch.as_tensor(launch_p0(pt, env_h, th3), dtype=torch.float32, device=dev)
@@ -2319,9 +2318,11 @@ def main() -> int:
                                                              settings))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _trace_tangent_impl(env_h, SRC_DEPTH, p0_3, 1.0, g2, settings)
+    out3_p = _trace_tangent_impl(env_h, SRC_DEPTH, p0_3, 1.0, g2, settings)
     torch.cuda.synchronize()
     tan3_plain_ms = (time.perf_counter() - t0) * 1e3
+    tan_errs.append(compare_tangent("config3", out3, out3_p))
+    tan_err = {f: max(e[f] for e in tan_errs) for f in TAN_FIELDS}
     tan3_bound_ms, tan3_bound_by = tangent_bound(out3, env_h, sps2 * nseg2)
     p0_e = torch.as_tensor(launch_p0(pt, env_h, eq_angles), dtype=torch.float32, device=dev)
     out_e = stepper.trace_tangent_kernel(env_h, SRC_DEPTH, p0_e, 1.0, g2, settings)
@@ -2452,6 +2453,10 @@ def main() -> int:
         "ms_fan8192": tan_e_ms,
         "plain_ms_fan8192": tan_plain_ms["horner"],
         "bound_ms_fan8192": tan_e_bound_ms,
+        # the save-grid kernel's body (csrc/tangent_trace.cuh), one segment
+        "layout": "one thread a ray, c and dc/dz in one loop",
+        "k_layout": "fixed" if int(cx.env_h.c_cheb.shape[-1]) in stepper.SAVE_FIXED_K
+                    else "run-time",
     }, {
         "name": "trace_tangent_save_f32",
         "route": "cuda",

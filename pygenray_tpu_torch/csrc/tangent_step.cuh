@@ -9,16 +9,16 @@
 // same Clenshaw rows.
 //
 // The step reads the profile's two series through a row type:
-//   * `Rows` (constant coefficients, the launch-parameter tangents; the
-//     kernel B2) evaluates the c and dc/dz series in two loops;
-//   * `PairRows<KC>` (the same series, from rows the block staged in shared
-//     memory; the ensemble kernel B4) has two lanes of a warp carry one ray:
-//     the even lane evaluates c, the odd lane dc/dz, Horner or Clenshaw, and
-//     the pair swaps the results, so both lanes must step the same ray
-//     together (they hold the same state and take the same branches);
+//   * `PairRows<KC>` (the c and dc/dz series, from rows the block staged in
+//     shared memory; the ensemble kernel B4) has two lanes of a warp carry
+//     one ray: the even lane evaluates c, the odd lane dc/dz, Horner or
+//     Clenshaw, and the pair swaps the results, so both lanes must step the
+//     same ray together (they hold the same state and take the same
+//     branches);
 //   * `FusedRows<KC>` and `FusedRegs<KC>` (one thread a ray, c and dc/dz
 //     in one loop, from shared memory or, up to K = TS_REG_MAX_K, from
-//     registers loaded once; the save-grid kernel B3);
+//     registers loaded once; the final-state and save-grid kernels B2 and
+//     B3, through tangent_trace.cuh);
 //   * `CoefRows<KC>` (coefficients that carry a tangent along a direction
 //     of the Chebyshev coefficients, weighted by a station's hat; Clenshaw
 //     only; the kernels B5 and B6) evaluates c and dc/dz in one loop.
@@ -48,8 +48,8 @@ namespace tangent_step {
 
 struct Params {
   int B, K, Kb;
-  int nsteps;     // final-state kernel: steps in all
-  int sps, nseg;  // save-grid kernel: steps a segment, segments
+  int nsteps;     // steps in all
+  int sps, nseg;  // steps a segment, segments (final-state kernels: nsteps, 1)
   int bangle_cheb, term_back, any_x_oob;
   float x0, h;          // range origin and step [m]
   float zlo_m, zhi_p;   // depth domain widened by bbox_tol
@@ -63,12 +63,6 @@ template <bool POW>
 __device__ __forceinline__ Dual dpoly(const float* c, int K, Dual u) {
   return POW ? dhorner(c, K, u) : dclenshaw(c, K, u);
 }
-
-// the (c, dc/dz) series of a profile with constant coefficients
-struct Rows {
-  const float* c;
-  const float* cp;
-};
 
 // the (c, dc/dz) series of a profile with constant coefficients, evaluated
 // by a lane pair; KC > 0: K = KC at compile time
@@ -105,18 +99,6 @@ struct CoefRows {
   const float* dcp;
   float hat;
 };
-
-// both series of a profile at u: (c, dc/dz)
-template <bool POW>
-__device__ __forceinline__ void series2(const Rows& r, int K, Dual u, Dual& c, Dual& cp) {
-  c = dpoly<POW>(r.c, K, u);
-  cp = dpoly<POW>(r.cp, K, u);
-}
-
-template <bool POW>
-__device__ __forceinline__ Dual series_c(const Rows& r, int K, Dual u) {
-  return dpoly<POW>(r.c, K, u);
-}
 
 // both series, each by one lane of the pair (threads 2i and 2i + 1 of a
 // warp-aligned block), each recurrence in dhorner's or dclenshaw's order
@@ -365,14 +347,6 @@ __device__ __forceinline__ RayState initial_state(const R& r0, const Params& P, 
   return s;
 }
 
-// the launch state over constant-coefficient rows
-template <bool POW>
-__device__ __forceinline__ RayState initial_state(const float* s_c, const float* s_cp,
-                                                  const Params& P, float z0, float dz0, float p0,
-                                                  float dp0) {
-  return initial_state<POW>(Rows{s_c, s_cp}, P, z0, dz0, p0, dp0);
-}
-
 // step k of a live ray: RK4 with the end derivative carried over, the
 // boundary-crossing fix, uncompensated accumulation, death checks.  rm, r1:
 // the series at mid-step and at the step's end; s_ba: the bottom-angle
@@ -464,17 +438,6 @@ __device__ __forceinline__ void step_rows(const Params& P, const StepInputs& in,
   const bool oob = (s.z.v > P.zhi_p) || (s.z.v < P.zlo_m) || (P.any_x_oob && in.xoob[k]);
   s.death = back_dead ? 3 : (vert ? 1 : (oob ? 2 : s.death));
   s.alive = !(vert || oob || back_dead);
-}
-
-// step k over constant-coefficient rows: s_c/s_cp, the range-independent
-// rows in shared memory, or (RD) row k of the per-step tables
-template <bool POW, bool RD>
-__device__ __forceinline__ void step(const Params& P, const StepInputs& in, const float* s_c,
-                                     const float* s_cp, const float* s_ba, int k, RayState& s) {
-  const size_t row = RD ? (size_t)k * P.K : 0;
-  const Rows rm = RD ? Rows{in.cms + row, in.cpms + row} : Rows{s_c, s_cp};  // mid-step
-  const Rows r1 = RD ? Rows{in.c1s + row, in.cp1s + row} : Rows{s_c, s_cp};  // step's end
-  step_rows<POW>(P, in, rm, r1, s_ba, k, s);
 }
 
 }  // namespace tangent_step

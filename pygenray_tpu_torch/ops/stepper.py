@@ -11,17 +11,19 @@ Counterparts of the six Pallas launchers of ``pygenray_tpu/ops/pallas_stepper.py
 * ``trace_tangent_kernel`` — the final-state forward-tangent kernel
   (``trace_pallas_tangent``, :1161), in ``csrc/trace_tangent.cu``: the same
   step on (value, tangent) pairs, final state only; the Newton engine of
-  the eigenray search.
+  the eigenray search.  Its body is the save-grid kernel's
+  (``csrc/tangent_trace.cuh``) with one segment and no save grid.
 * ``trace_tangent_save_kernel`` — the save-grid forward-tangent kernel
   (``trace_pallas_tangent_save``, :1194), in ``csrc/trace_tangent_save.cu``:
-  the tangent kernel's step (shared through ``csrc/tangent_step.cuh``),
+  the tangent kernels' step (shared through ``csrc/tangent_step.cuh``),
   seeded in ``p0`` and ``z0``, with the state and its tangent written at
-  every save point, c and dc/dz in one loop, K compiled fixed for the
-  spectral fit ladder's lengths (``SAVE_FIXED_K``; a range-independent
-  field's coefficients in registers), a range-dependent field's step rows
-  staged in shared memory as the ensemble kernel's; the engine of autograd
-  through ``trace`` and of the receiver side (amplitudes, impulse
-  responses, transmission-loss fields).
+  every save point.  Both kernels run one thread a ray, c and dc/dz in one
+  loop, K compiled fixed for the spectral fit ladder's lengths
+  (``SAVE_FIXED_K``; a range-independent field's coefficients in
+  registers), a range-dependent field's step rows staged in shared memory
+  as the ensemble kernel's; the engine of autograd through ``trace`` and
+  of the receiver side (amplitudes, impulse responses, transmission-loss
+  fields).
 * ``trace_tangent_ensemble_kernel`` — the ensemble forward-tangent kernel
   (``trace_pallas_tangent_ensemble``, :1258), in
   ``csrc/trace_tangent_ens.cu``: the final-state tangent kernel's step
@@ -128,8 +130,8 @@ def seg_layout(Ks: int, S: int) -> str:
 ENS_FIXED_K = (16, 24, 32, 48, 64, 96)
 
 
-# K the save-grid tangent kernel is compiled for with K fixed (csrc
-# trace_tangent_save.cu launch_k): the same ladder
+# K the final-state and save-grid tangent kernels are compiled for with K
+# fixed (csrc/tangent_trace.cuh with_fixed_k): the same ladder
 SAVE_FIXED_K = ENS_FIXED_K
 
 

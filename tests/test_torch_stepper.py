@@ -252,18 +252,23 @@ def test_build_flags_and_source_hash(monkeypatch):
         # one ctypes argument type per C parameter
         params = src.split(entry)[1].split(")")[0].split(",")
         assert len(params) == len(stepper._ARGTYPES[f"{name}_f32"])
-    # the shared headers: the step (tangent_step.cuh over dual.cuh) and the
-    # step rows staged by asynchronous copies (stage_rows.cuh, B3 and B4);
-    # each is in every library's hash
+    # the shared headers: the step (tangent_step.cuh over dual.cuh), the
+    # step rows staged by asynchronous copies (stage_rows.cuh, B2-B4) and the
+    # body of the final-state and save-grid tangent kernels
+    # (tangent_trace.cuh, B2 and B3); each is in every library's hash
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == [
-        "dual.cuh", "stage_rows.cuh", "tangent_step.cuh"]
-    for name in ("trace_tangent_ens", "trace_tangent_save"):
+        "dual.cuh", "stage_rows.cuh", "tangent_step.cuh", "tangent_trace.cuh"]
+    for name in ("trace_tangent", "trace_tangent_ens", "trace_tangent_save"):
         assert '#include "stage_rows.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
-    before = {name: _build.library_path(name) for name in _build.sources()}
-    read = _build.Path.read_bytes
-    monkeypatch.setattr(_build.Path, "read_bytes",
-                        lambda self: read(self) + (b"//" if self.name == "stage_rows.cuh" else b""))
-    assert all(_build.library_path(name) != path for name, path in before.items())
+    for name in ("trace_tangent", "trace_tangent_save"):
+        assert '#include "tangent_trace.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+    for header in sorted(p.name for p in _build.CSRC.glob("*.cuh")):
+        before = {name: _build.library_path(name) for name in _build.sources()}
+        read = _build.Path.read_bytes
+        monkeypatch.setattr(_build.Path, "read_bytes",
+                            lambda self, h=header: read(self) + (b"//" if self.name == h else b""))
+        assert all(_build.library_path(name) != path for name, path in before.items()), header
+        monkeypatch.setattr(_build.Path, "read_bytes", read)
 
 
 def test_step_geometry_is_the_plain_versions():

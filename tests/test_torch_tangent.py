@@ -16,7 +16,8 @@ rules it is built from.
   not).
 * Against central differences of the port's float64 forward trace.
 * Its primal is the forward trace without Kahan compensation, bit for bit.
-* The wrapper on CPU tensors is the plain version.
+* The wrapper on CPU tensors is the plain version, and it equals the
+  save-grid tangent trace's last row (the two kernels share one body).
 * Each dual-number rule against ``jax.jvp`` of the same function.
 
 The kernel itself (``csrc/trace_tangent.cu``) runs only on a card;
@@ -40,6 +41,7 @@ from pygenray_tpu_torch.integrate import (
     _plan,
     _trace_impl,
     _trace_tangent_impl,
+    _trace_tangent_save_impl,
 )
 from pygenray_tpu_torch.ops import dual as D
 from pygenray_tpu_torch.ops import stepper
@@ -170,6 +172,21 @@ def test_tangent_kernel_cpu_is_the_plain_version(kind, tangents):
     out = stepper.trace_tangent_kernel(te, 1300.0, _p0(), 1.0, _geom(), s)
     assert stepper.TANGENT_LAUNCHES == n0  # CPU tensors: the plain version, no launch
     for a, b in zip(out, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["ri", "rd"])
+def test_tangent_kernel_cpu_is_the_save_grid_tangents_last_row(kind, tangents):
+    """The final-state and save-grid tangent kernels run one body
+    (``csrc/tangent_trace.cuh``): the final-state wrapper's result is the
+    save-grid plain version's last row for the seed (dp0, dz0) = (1, 0),
+    bit for bit."""
+    te, _, _ = tangents[kind]
+    s = SolverSettings(dx=DX)
+    out = stepper.trace_tangent_kernel(te, 1300.0, _p0(), 1.0, _geom(), s)
+    res, tan = _trace_tangent_save_impl(te, 1300.0, _p0(), 1.0, _geom(), s, dz0=0.0)
+    last = (res.ts, res.zs, res.ps, *tan)
+    for a, b in zip(out, [g[:, -1] for g in last] + [res.n_surf, res.n_bott, res.death_code]):
         assert torch.equal(a, b)
 
 

@@ -265,12 +265,15 @@ def test_a_launch_without_a_compiler_raises(monkeypatch):
 
 
 def test_fixed_k_list_mirrors_the_launcher():
-    """The K the kernel is compiled for with K fixed (``launch_k`` in
-    ``csrc/trace_tangent_save.cu``) are ``stepper.SAVE_FIXED_K``: the
-    spectral fit ladder's lengths (envdata.py, orders + 1) up to 96; the
-    range-dependent step rows come through the ensemble kernel's header."""
-    src = (_build.CSRC / "trace_tangent_save.cu").read_text()
-    cases = [int(k) for k in re.findall(r"case (\d+): return launch<POW, RD, \1>", src)]
+    """The K the kernel is compiled for with K fixed (``with_fixed_k`` in
+    ``csrc/tangent_trace.cuh``, the body it shares with the final-state
+    tangent kernel) are ``stepper.SAVE_FIXED_K``: the spectral fit ladder's
+    lengths (envdata.py, orders + 1) up to 96; the range-dependent step
+    rows come through the ensemble kernel's header."""
+    src = (_build.CSRC / "tangent_trace.cuh").read_text()
+    cases = [int(k) for k in re.findall(r"case (\d+): return L::template run<\1>", src)]
     assert tuple(cases) == stepper.SAVE_FIXED_K
     assert stepper.SAVE_FIXED_K == tuple(o + 1 for o in (15, 23, 31, 47, 63, 95))
     assert '#include "stage_rows.cuh"' in src
+    for name in ("trace_tangent", "trace_tangent_save"):
+        assert '#include "tangent_trace.cuh"' in (_build.CSRC / f"{name}.cu").read_text()

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Device time of the inversion's kernels (B6 and the range-dependent fan,
 B1c), of the other coefficient-tangent launches, of the fan kernel's
-segment mode (B1d), of the ensemble tangent kernel (B4) and of the
-save-grid tangent kernel (B3) at the receiver side's shapes, for several
-checkouts of the port on one card, with the wrapper's share split off.
+segment mode (B1d) and at the headline fan (B1a), of the ensemble tangent
+kernel (B4), of the save-grid tangent kernel (B3) at the receiver side's
+shapes and of the final-state tangent kernel (B2) at the eigenray solver's,
+for several checkouts of the port on one card, with the wrapper's share
+split off.
 
     python3 tools/coef_tangent_probe.py [--cases A,B,...] ROOT [ROOT ...]
 
@@ -81,13 +83,29 @@ The cases:
   parameters (75 Hz, 251 depths x 300 ranges) and ``array_response`` at
   ``examples/impulse_response_demo.py``'s (2,048-ray fan, 75 Hz, bandwidth
   37.5 Hz), synchronized, the median of 5 after a warm call;
-* ``b2_fan8192``: ``trace_tangent_kernel`` over 8,192 rays of the headline
-  field, a kernel whose code these redesigns do not touch, as a control for
-  the machine;
+* ``b1a_headline``: ``trace_kernel`` at the headline fan (BASELINE config
+  0: 102,400 rays over ±15°, 100 km, 50 saves, dx = 200 m: 490 steps);
+* ``b2_config3``, ``b2_fan8192``: ``trace_tangent_kernel`` on the headline
+  field at the eigenray solver's 2-save plan (100 km, dx = 200 m: 500
+  steps), over BASELINE config 3's eigenray angles (the 156 that
+  ``find_eigenrays`` finds from the 1,024-ray fan over ±14° for 64
+  receivers at 500-2100 m, as ``chip_smoke.py`` phase 9 takes them) and
+  over 8,192 rays over ±18°;
+* ``eigen_walls``: the wall time of ``find_eigenrays`` at BASELINE configs
+  2 (one receiver at 1300 m) and 3 (those 64), from that fan
+  (synchronized, the median of 5 after a warm call, as ``chip_smoke.py``
+  phase 9 times them), with the warm call's Newton iterations (the most any
+  receiver took) and launch counts;
 * ``inversion_solve``: ``examples/gradient_inversion_demo.py``'s 150 Adam
   steps at full size through ``travel_times_of_coef`` (one B1c and one B6
   launch a step), as ``chip_smoke.inversion_phase`` runs them: the wall
   time a step (synchronized at the end) and the misfit's drop.
+
+``b5_bench`` runs a kernel whose code the B2 redesign does not touch: it
+is the control for the machine's drift when B2 changes.  Beside the cases,
+``ptxas`` gives each kernel's registers and spill stores and loads from the
+build's ``-Xptxas -v`` report, for the checkout that built its libraries
+(the first of its runs).
 
 The wrappers are called as a user calls them, without the per-step
 geometry an inversion builds once (``stepper.step_geometry``), so that one
@@ -111,7 +129,8 @@ N_LAUNCH = 20
 # every case, in the order they run; --cases picks some of them
 CASES = ("b5_bench", "b1d_rough", "b1d_rough_narrow", "b1d_ri_pow", "b1d_ri_cheb", "b6_2d",
          "b6_inversion", "b1c_inversion", "b1c_config1", "mc_config4b", "b4_fan", "b4_newton",
-         "b3_tl", "b3_array", "b3_headline", "receiver_walls", "b2_fan8192", "inversion_solve")
+         "b3_tl", "b3_array", "b3_headline", "receiver_walls", "b1a_headline", "b2_config3",
+         "b2_fan8192", "eigen_walls", "inversion_solve")
 B3_CASES = ("b3_tl", "b3_array", "b3_headline")
 
 
@@ -193,7 +212,8 @@ def child(root, only=CASES):
         return fields[name]
 
     def f_headline():
-        """the headline field: B5 at bench.py's Jacobian, B2 at 8,192 rays"""
+        """the headline field: B5 at bench.py's Jacobian, B2 at 8,192 rays, B1a
+        at the headline fan"""
         from pygenray_tpu_torch.adjoint import _deriv_matrix, _directions
 
         z = np.linspace(0.0, 6000.0, 2048)
@@ -205,7 +225,9 @@ def child(root, only=CASES):
         return {"z": z, "r": r, "env": env, "c_src": c_src, "s": pt.SolverSettings(dx=200.0),
                 "g": geom(100e3, 200.0), "dcs": dcs, "dcps": dcps,
                 "p0": p0_of(c_src, np.linspace(-14.0, 14.0, 512)),
-                "p8": p0_of(c_src, np.linspace(-18.0, 18.0, 8192))}
+                "p8": p0_of(c_src, np.linspace(-18.0, 18.0, 8192)),
+                "p_head": p0_of(c_src, np.linspace(-15.0, 15.0, 102_400)),
+                "g50": geom(100e3, 200.0, 50)}
 
     def f_jac2d():
         """bench.py's 2D Jacobian field"""
@@ -335,9 +357,26 @@ def child(root, only=CASES):
                                   h["s"]),
         }
 
+    def f_eigen():
+        """BASELINE configs 2 and 3 on the headline field: the solver's fan
+        (1,024 rays over ±14°, 2 saves), the two calls, and config 3's
+        eigenray angles as B2's launch on the solver's 2-save plan"""
+        h = field("headline")
+        env = h["env"]
+        fan = pt.shoot_rays(SRC, 0.0, np.linspace(-14.0, 14.0, 1024), 100e3, 2, env,
+                            flatearth=False, dx=200.0)
+        calls = {name: (lambda rds=rds: pt.find_eigenrays(fan, rds, SRC, 0.0, 100e3, 50, env,
+                                                          ztol=1.0, flatearth=False, dx=200.0))
+                 for name, rds in (("config2", [1300.0]),
+                                   ("config3", np.linspace(500.0, 2100.0, 64)))}
+        er = calls["config3"]()
+        th3 = np.concatenate([er.launch_angles[i] for i in range(64)
+                              if len(er.launch_angles[i])])
+        return {"calls": calls, "p0_3": p0_of(h["c_src"], th3)}
+
     FIELDS = {"headline": f_headline, "jac2d": f_jac2d, "inversion": f_inversion,
               "config1": f_config1, "rough": f_rough, "seg_ri": f_seg_ri, "config4b": f_config4b,
-              "receiver": f_receiver}
+              "receiver": f_receiver, "eigen": f_eigen}
 
     def b3(name):
         env, src, p0, g, s = field("receiver")[name]
@@ -370,6 +409,31 @@ def child(root, only=CASES):
             runs.append((time.perf_counter() - t0) * 1e3)
         return {"median_ms": statistics.median(runs), "runs_ms": runs, "launches": launches,
                 "path": f["path"], "arrivals": f["arrivals"]}
+
+    def eigen_walls():
+        """the wall times of find_eigenrays at configs 2 and 3 (synchronized,
+        median of 5 after a warm call), the warm call's Newton iterations
+        and launch counts"""
+        import time
+
+        out = {}
+        for name, call in field("eigen")["calls"].items():
+            stepper.LAUNCHES = stepper.TANGENT_LAUNCHES = 0
+            er = call()
+            torch.cuda.synchronize()
+            warm = {"iterations": int(er.diagnostics["iterations"].max(initial=0)),
+                    "eigenrays": int(sum(er.num_eigenrays_found.values())),
+                    "launches": {"trace_fan_f32": stepper.LAUNCHES,
+                                 "trace_tangent_f32": stepper.TANGENT_LAUNCHES}}
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            out[name] = {"median_ms": statistics.median(runs), "runs_ms": runs, **warm}
+        return out
 
     def receiver_walls():
         """the wall times of transmission_loss_field and array_response at
@@ -425,6 +489,11 @@ def child(root, only=CASES):
             f["env"], SRC, f["p0"], f["g"], f["s"]), "trace_fan"),
         "b4_fan": lambda: (b4("fan"), "tangent_ens"),
         "b4_newton": lambda: (b4("newton"), "tangent_ens"),
+        "b1a_headline": lambda: (lambda h=field("headline"): stepper.trace_kernel(
+            h["env"], SRC, h["p_head"], h["g50"], h["s"]), "trace_fan"),
+        "b2_config3": lambda: (lambda h=field("headline"), p=field("eigen")["p0_3"]:
+                               stepper.trace_tangent_kernel(h["env"], SRC, p, 1.0, h["g"],
+                                                            h["s"]), "trace_tangent"),
         "b2_fan8192": lambda: (lambda h=field("headline"): stepper.trace_tangent_kernel(
             h["env"], SRC, h["p8"], 1.0, h["g"], h["s"]), "trace_tangent"),
         **{name: (lambda name=name: (b3(name), "tangent_save")) for name in B3_CASES},
@@ -438,6 +507,8 @@ def child(root, only=CASES):
             out[name] = mc_config4b()
         elif name == "receiver_walls":
             out[name] = receiver_walls()
+        elif name == "eigen_walls":
+            out[name] = eigen_walls()
         elif name == "inversion_solve":
             f = field("inversion")
             out[name] = inversion_solve(torch, pt, dev, f["z"], f["r"], f["env"], f["s"])
@@ -450,7 +521,43 @@ def child(root, only=CASES):
                                  K=int(env.c_cheb.shape[-1]), horner=bool(env.poly_ok))
     if "b1d_rough" in out:
         out["b1d_rough"]["seg_terms"] = int(field("rough")["env"].c_seg.shape[-2])
+    if "b2_config3" in out:
+        out["b2_config3"]["rays"] = len(field("eigen")["p0_3"])
+    from pygenray_tpu_torch.ops import _build
+
+    out["ptxas"] = ptxas_report(_build.BUILD_LOG)
     print(json.dumps(out), flush=True)
+
+
+def ptxas_report(log):
+    """{source: {kernel: [registers, spill store bytes, spill load bytes]}}
+    from nvcc's ``-Xptxas -v`` output (``ops/_build.BUILD_LOG``; empty when
+    this process found its libraries built), the names demangled by
+    ``c++filt`` where it is installed and cut at their argument list."""
+    import re
+    import shutil
+
+    rows, src, fn = {}, None, None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+            rows[src] = {}
+        elif m := re.search(r"Compiling entry function '(\S+)'", ln):
+            fn = m.group(1)
+            rows[src][fn] = [None, None, None]
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            rows[src][fn][1:] = [int(m.group(1)), int(m.group(2))]
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            rows[src][fn][0] = int(m.group(1))
+    names = [fn for r in rows.values() for fn in r]
+    if names and shutil.which("c++filt"):
+        dem = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(dem) == len(names):
+            cut = dict(zip(names, (d.replace("(anonymous namespace)::", "").split("(")[0]
+                                   for d in dem)))
+            rows = {s: {cut[f]: v for f, v in r.items()} for s, r in rows.items()}
+    return rows
 
 
 def inversion_solve(torch, pt, dev, z, r, env0, s, iters=150, lr=0.03, lam=1e-10):
