@@ -144,16 +144,14 @@ MC_E = 16
 MC_RAYS = 65_536
 ROUGH_DX = 100.0
 SEG_X1 = 30e3  # range of the segment-mode comparisons other than the rough shape
-# about the range of the plain comparisons that run shorter than the main
-# path's shape (B1d at the rough ensemble's)
-CMP_X1 = 30e3
 # range of the save-grid tangent kernel's comparisons on the tangent fans
 # with three seeds: no main path runs these fans
 SAVE_FANS_X1 = 10e3
-# the fan kernel's fans compared over CMP_X1: no main path launches them at
-# 100 km (the headline fan runs the Horner field); the final-state tangent
-# kernel is held on them at the full 100 km
-TAN_SHORT = ("clenshaw", "horner_curved_bottom")
+# the fan kernel's range-independent spectral path at the other K it
+# compiles fixed (32, 64) and at one K read at run time (41): Chebyshev
+# orders of exact-order Munk fits, compared over RI_K_X1 with 10 saves
+RI_K_ORDERS = (31, 63, 40)
+RI_K_X1 = 30e3
 SEG_S = 128  # segments of a segment fit (ops/seg.py SEG_S)
 # terms of the rough exact-order fits whose step tables take the layouts the
 # main path's 32 does not (stepper.seg_layout): one buffer, none
@@ -1012,6 +1010,41 @@ def rough_field():
     return mod
 
 
+def ri_k_phase(cx):
+    """The fan kernel's range-independent spectral path (B1a) at the K it
+    compiles fixed beside the headline's 16 (32 and 64) and at one K read
+    at run time (41), on exact-order fits of the headline's Munk profile
+    (``RI_K_ORDERS``), each by Horner and by Clenshaw, against its plain
+    version: 8,192 rays over ±18° to ``RI_K_X1``, 10 saves.  Where the
+    default ladder leaves a fit to Clenshaw (``poly_ok`` false), its
+    Chebyshev rows are read as monomial ones for the Horner case: an
+    invented profile that no main path traces (smooth, but every ray
+    reaches the bottom), there for the Horner code at that K.  Returns the
+    worst errors."""
+    torch, pt, st = cx.torch, cx.pt, cx.stepper
+    z, r = np.linspace(0.0, 6000.0, NZ), np.linspace(0.0, R_MAX, NR)
+    h, sps, nseg = cx.plan(0.0, RI_K_X1, 10, DX)
+    errs = []
+    for order in RI_K_ORDERS:
+        fit = pt.make_env_data(np.outer(np.ones(NR), pt.munk_ssp(z)), r, z, np.full(NR, 5000.0),
+                               r, dtype=torch.float32, device=cx.dev, cheb_order=order,
+                               cheb_exact_order=True)
+        horner = fit if fit.poly_ok else dataclasses.replace(
+            fit, poly_ok=True, c_pow=fit.c_cheb, dcdz_pow=fit.dcdz_cheb)
+        for name, env in (("horner", horner), ("clenshaw", dataclasses.replace(fit,
+                                                                              poly_ok=False))):
+            K = int(env.c_cheb.shape[-1])
+            require(K == order + 1 and not env.range_dependent and st.kernel_supported(
+                env, cx.settings), f"the K = {order + 1} Munk fit is not a range-independent "
+                "field the fan kernel covers")
+            p0 = on_card(cx, launch_p0(pt, env, cx.eq_angles))
+            res_k = st.trace_kernel(env, SRC_DEPTH, p0, (0.0, RI_K_X1, h, sps, nseg), cx.settings)
+            res_p = pt.trace(env, SRC_DEPTH, p0, 0.0, RI_K_X1, 10,
+                             dataclasses.replace(cx.settings, backend="ops"))
+            errs.append(compare(f"range_independent_K{K}_{name}", res_k, res_p))
+    return worst(errs)
+
+
 def seg_kernel_phase(cx):
     """The fan kernel's segment mode against its plain version: a
     range-independent Munk fit in each basis ("pow", Horner: 8 terms;
@@ -1022,9 +1055,7 @@ def seg_kernel_phase(cx):
     layouts the main path does not take, on exact-order fits of the same
     realization: 96 terms (one buffer) and 128 (no buffer: each pick blends
     from device memory), 4,096 rays to 10 km.  The rough shape is held to
-    the plain version with every ray over ``CMP_X1`` at the same step (2
-    saves), where the plain loop, whose time goes with its steps, takes
-    under a third of the time, and timed and bounded in full.  First a
+    the plain version, timed and bounded in full.  First a
     line of the layout the launcher (``trace_fan_seg_layout``) takes for
     each K of both fit ladders and for 128, which must be
     ``stepper.seg_layout``'s.  Returns
@@ -1055,7 +1086,7 @@ def seg_kernel_phase(cx):
         cases.append((f"segment_{basis}", env, cx.settings, p0_eq(env), SEG_X1, 10))
     s_rough = pt.SolverSettings(dx=ROUGH_DX)
     rough0 = env_member(cx.env_sg, 0)
-    cases.append(("segment_rough_rd", rough0, s_rough, on_card(cx, mc_launch_p0(cx)), CMP_X1, 2))
+    cases.append(("segment_rough_rd", rough0, s_rough, on_card(cx, mc_launch_p0(cx)), R_MAX, 2))
     c, r_s, z_s = rough_field().rough_tables(pt.munk_ssp, 1)
     p0_small = on_card(cx, np.sin(np.radians(-np.linspace(-ANGLE_SPAN, ANGLE_SPAN, SEG_SMALL_RAYS)))
                        / cx.c_src_mc)
@@ -1087,15 +1118,12 @@ def seg_kernel_phase(cx):
         plain_ms = (time.perf_counter() - t0) * 1e3
         errs.append(compare(f"{name}_K{int(env.c_seg.shape[-2])}", res_k, res_p))
         if name == "segment_rough_rd":
-            h, sps, nseg = cx.plan(0.0, R_MAX, num_save, s.dx)
-            g_full = (0.0, R_MAX, h, sps, nseg)
-            b_ms, b_by = seg_fan_bound(stepper.trace_kernel(env, SRC_DEPTH, p0, g_full, s), env,
-                                       sps)
-            out = {"rays": int(p0.shape[0]), "steps": sps * nseg, "plain_ms": plain_ms,
+            b_ms, b_by = seg_fan_bound(res_k, env, geom[3])
+            out = {"rays": int(p0.shape[0]), "steps": geom[3] * geom[4], "plain_ms": plain_ms,
                    "compared_at": {"range_m": x1, "steps": geom[3] * geom[4]},
                    "bound_ms": b_ms, "bound_by": b_by, "layout": layouts[k_main],
                    "kernel_event_ms": events_ms(
-                       lambda: stepper.trace_kernel(env, SRC_DEPTH, p0, g_full, s), n=5)}
+                       lambda: stepper.trace_kernel(env, SRC_DEPTH, p0, geom, s), n=5)}
     return worst(errs), out
 
 
@@ -1669,8 +1697,8 @@ def inversion_start(cx):
 
 
 def profiler_split_phase(cx):
-    """Where the range-dependent launches' time goes (``split_ms``): the
-    fan kernel at BASELINE config 1, B6 at bench.py's 2D Jacobian, B6 and
+    """Where the launches' time goes (``split_ms``): the fan kernel at the
+    headline fan and at BASELINE config 1, B6 at bench.py's 2D Jacobian, B6 and
     the 2-save fan launch at the inversion step's shapes (on the
     inversion's starting field), the ensemble tangent kernel at config
     4b's two shapes (``ens_shapes``, from one config 4b call; the step rows
@@ -1691,7 +1719,12 @@ def profiler_split_phase(cx):
     op = _CoefTimes(env0, SRC_DEPTH, p0, 0.0, INV["r_max"], s)
     env_k, geo = op.env_with(env0.c_cheb), op.geo()  # the step's wrappers get the geometry
     d_inv, dp_inv = _directions(op.Dm)
+    p0_h = on_card(cx, launch_p0(cx.pt, cx.env_h, np.linspace(-ANGLE_SPAN, ANGLE_SPAN,
+                                                              NUM_RAYS)))
+    g_h = (0.0, R_MAX, *cx.plan(0.0, R_MAX, NUM_SAVE, DX))
     cx.splits = {
+        "b1a_headline": split_ms(lambda: st.trace_kernel(cx.env_h, SRC_DEPTH, p0_h, g_h,
+                                                         cx.settings), "trace_fan"),
         "config1_fan": split_ms(lambda: st.trace_kernel(cx.env_rd, SRC_DEPTH, p0_rd,
                                                         (0.0, R_MAX, h, sps, nseg), cx.s_rd),
                                 "trace_fan"),
@@ -2133,8 +2166,6 @@ def main() -> int:
     )
     errs_all = []
     for name, env, ang, z0, x1, s in cases:
-        if name in TAN_SHORT:
-            x1 = CMP_X1
         h, sps, nseg = _plan(0.0, x1, NUM_SAVE, DX)
         p0 = torch.as_tensor(launch_p0(pt, env, ang), dtype=torch.float32, device=dev)
         z0 = torch.as_tensor(z0, dtype=torch.float32, device=dev)
@@ -2148,6 +2179,8 @@ def main() -> int:
     h, sps, nseg = _plan(0.0, R_MAX, NUM_SAVE, DX)
     geom = (0.0, R_MAX, h, sps, nseg)
     phase_done("3 fan kernel vs plain")
+    errs_all.append(ri_k_phase(cx))
+    phase_done("3b range-independent K")
 
     # ---- phase 4: the main path at full size -------------------------------
     angles = np.linspace(-ANGLE_SPAN, ANGLE_SPAN, NUM_RAYS)
@@ -2335,7 +2368,8 @@ def main() -> int:
     res_rd = stepper.trace_kernel(env_rd, SRC_DEPTH, p0_rd, geom_rd, s_rd)
     rd_ms = events_ms(lambda: stepper.trace_kernel(env_rd, SRC_DEPTH, p0_rd, geom_rd, s_rd))
     rd_split = cx.splits["config1_fan"]
-    _, rd_plain_s = run(dataclasses.replace(s_rd, backend="ops"), env_rd, p0_rd)
+    res_rd_p, rd_plain_s = run(dataclasses.replace(s_rd, backend="ops"), env_rd, p0_rd)
+    errs_all.append(compare("range_dependent_config1_full", res_rd, res_rd_p))
     rd_bound_ms, rd_bound_by = fan_bound(res_rd, env_rd, sps_rd)
     # wall latency of BASELINE configs 2 and 3 (median of 5 after a warm-up)
     fan_e = pt.shoot_rays(SRC_DEPTH, 0.0, np.linspace(-14.0, 14.0, 1024), R_MAX, 2, env_h,
@@ -2424,6 +2458,15 @@ def main() -> int:
         "bound_ms": fan_bound_ms,
         "bound_by": fan_bound_by,
         "library_ms": None,  # no single PyTorch call traces a ray fan
+        # the headline launch split (split_ms): the profiler's kernel row,
+        # the other device rows, the wrapper's host time
+        "kernel_ms": cx.splits["b1a_headline"]["kernel_ms"],
+        "other_device_ms": cx.splits["b1a_headline"]["other_device_ms"],
+        "host_ms": cx.splits["b1a_headline"]["host_ms"],
+        # range-independent spectral path (B1a), csrc/trace_fan.cu
+        "layout": "one thread a ray, 128 a block, coefficient rows in uniform registers, "
+                  "saves in (B, nseg+1) rows",
+        "compared_k": [int(cx.env_h.c_cheb.shape[-1]), *(o + 1 for o in RI_K_ORDERS)],
         "ms_config1": rd_ms,
         "kernel_ms_config1": rd_split["kernel_ms"],  # torch.profiler's kernel row
         "plain_ms_config1": rd_plain_s * 1e3,

@@ -79,15 +79,31 @@
 // The per-step bathymetry b0s/b1s and the domain-exit flags
 // xoob come from the wrapper, computed exactly as the plain version
 // computes them (the flags on the host in float64: float32 range
-// arithmetic must not decide deaths).  Saves go to (nseg+1, B) outputs,
-// neighbouring threads on neighbouring addresses; the wrapper transposes
-// them to (B, nseg+1).
+// arithmetic must not decide deaths).  Saves of the block-wide modes go to
+// (nseg+1, B) outputs, neighbouring threads on neighbouring addresses, and
+// the wrapper transposes them to (B, nseg+1) (written by each thread as
+// its own row, they cost B1c 3 % at config 1 on an H100: a block's
+// threads save at the same step, then meet at its barrier).
+// Spectral, range-independent (B1a, the headline fan): the coefficient
+// rows go to shared memory, from where ptxas reads them once, before the
+// step loop, into uniform registers, so no series term loads anything
+// (read from the constant bank instead, they cost a uniform load a pair of
+// terms and 11 % at the headline fan on an H100; held in registers, 2 %).
+// A step issues about 530 instructions.  TF_BLOCK = 128 threads a block:
+// the headline fan's 800 blocks are resident at once, 6 or 7 on an SM, and
+// the busiest SM sub-partition holds 7 warps whatever the block size
+// (3,200 warps > 6 x 528; one warp a block measured 0.3-1.1 % slower).
+// Each thread writes its saves as its own row of a (B, nseg+1) output, the
+// layout of the caller's TraceResult, so the wrapper copies nothing
+// (PERF.md).
+// Every mode: the right-hand side's clamp, max and 1/sqrt take their
+// one-instruction forms (max_nan, min_nan, rsqrt_normal).
 //
 // What bounds it on an H100.  At the headline fan and config 1 (102,400
 // rays, 490 and 980 steps, K = 16) FP32 issue: a step costs four
-// right-hand-side evaluations of two K-term series each, about 300 float
-// operations per ray, so about 1.5e10 per launch; the saves are 3 x 50 x
-// 102,400 x 4 B ~ 61 MB and the per-step inputs a few kB, so memory
+// right-hand-side evaluations of two K-term series each, about 370 float
+// operations per ray, so about 1.9e10 per launch; the saves are 3 x 51 x
+// 102,400 x 4 B ~ 63 MB and the per-step inputs a few kB, so memory
 // traffic is minor.  At the inversion's 2-save forward (128 rays, 300
 // steps, K = 32) one block holds every ray and the time is one thread's
 // dependent chain: four right-hand sides in a row a step, each 31 Clenshaw
@@ -100,8 +116,9 @@
 // Rounding.  Built without --use_fast_math (Kahan needs IEEE add order;
 // 1/c, sqrt, sin and cos stay IEEE-accurate) and with -fmad=false, so every
 // product and sum rounds on its own as in torch's separate elementwise
-// kernels; rsqrtf is the reciprocal square root torch.rsqrt uses on the
-// card.  The kernel then reproduces its plain version bit for bit.  The
+// kernels; rsqrt_normal gives, for the normal arguments it gets, the bits
+// of rsqrtf, the reciprocal square root torch.rsqrt uses on the card.  The
+// kernel then reproduces its plain version bit for bit.  The
 // explicit __fmul_rn/__fadd_rn on the crossing range keep that rounding
 // even where contraction is enabled.
 
@@ -160,6 +177,30 @@ __device__ __forceinline__ float maxf(float x, float lo) {
   return (x != x || x > lo) ? x : lo;
 }
 
+// the spectral coordinate's clamp to [-1, 1] and a right-hand side's maxf
+// in two and one instructions (max.NaN, min.NaN: a NaN in gives a NaN out,
+// the values of the two above otherwise), and rsqrtf of a normal number
+// without the subnormal scaling (the same bits: MUFU.RSQ), where they take
+// three, three and four; a right-hand side's argument of 1/sqrt is
+// >= TF_TINY, normal
+__device__ __forceinline__ float max_nan(float x, float y) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float x, float y) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}
+
+__device__ __forceinline__ float rsqrt_normal(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 __device__ __forceinline__ float clenshaw(const float* c, int K, float u) {
   float b1 = 0.0f, b2 = 0.0f;
   for (int k = K - 1; k >= 1; --k) {
@@ -192,7 +233,7 @@ struct Coord {
 
 template <int SEG>
 __device__ __forceinline__ Coord coord(const Params& P, float z) {
-  if (SEG == 0) return {clampf(P.sc * z - P.off, -1.0f, 1.0f), 0};
+  if (SEG == 0) return {max_nan(min_nan(P.sc * z - P.off, 1.0f), -1.0f), 0};
   const float t = clampf((z - P.seg_zlo) * P.seg_hinv, 0.0f, P.seg_Sf);
   const float fl = floorf(t);
   const float segf = fl > P.seg_Sf - 1.0f ? P.seg_Sf - 1.0f : fl;  // NaN stays, as torch.clamp
@@ -280,7 +321,7 @@ __device__ __forceinline__ Deriv rhs(const Prof& pr, const Params& P, float z, f
   float c, cp;
   series2<POW, RD, SEG, KC, SB>(pr, P, coord<SEG>(P, z), c, cp);
   const float cp2 = c * p;
-  const float inv_s = rsqrtf(maxf(1.0f - cp2 * cp2, TF_TINY));
+  const float inv_s = rsqrt_normal(max_nan(1.0f - cp2 * cp2, TF_TINY));
   const float invc = 1.0f / c;
   return {inv_s * invc, cp2 * inv_s, -cp * inv_s * invc * invc, c};
 }
@@ -438,7 +479,10 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (!BLK && i >= P.B) return;
   const bool act = i < P.B;  // BLK: a masked thread still blends and meets the barriers
-  const int B = P.B;
+  // save j at sv + j * svs: range-independent spectral (B1a), this ray's row
+  // of a (B, nseg+1) grid; the block-wide modes, column i of (nseg+1, B)
+  constexpr bool ROWS = SEG == 0 && !RD;
+  const size_t sv = ROWS ? (size_t)i * (P.nseg + 1) : i, svs = ROWS ? 1 : P.B;
   const float hs = P.h;
   const float h6 = hs / 6.0f;
 
@@ -472,9 +516,9 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
   int n_surf = 0, n_bott = 0;
   int dseg = alive ? P.nseg + 1 : 0;  // first save index at which the ray is dead
   if (act) {
-    ts[i] = T;
-    zs[i] = z;
-    ps[i] = p;
+    ts[sv] = T;
+    zs[sv] = z;
+    ps[sv] = p;
   }
   if (SB) {  // step 0's tables over the launch range's, once all have read those
     __syncthreads();
@@ -609,10 +653,10 @@ trace_fan_kernel(Params P, const float* __restrict__ p0v, const float* __restric
     }
     if (act) {
       // compensated readout: comp holds the overshoot, so val - comp
-      const size_t row = (size_t)(seg + 1) * B + i;
-      ts[row] = T - Tc;
-      zs[row] = z - zc;
-      ps[row] = p;
+      const size_t o = sv + (seg + 1) * svs;
+      ts[o] = T - Tc;
+      zs[o] = z - zc;
+      ps[o] = p;
     }
     if (!alive && dseg > seg + 1) dseg = seg + 1;
   }

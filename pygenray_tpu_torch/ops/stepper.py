@@ -146,6 +146,15 @@ def ens_layout(K: int, tables) -> tuple:
     return ("fixed" if K in ENS_FIXED_K else "run-time", 16 if K % 4 == 0 and aligned else 4)
 
 
+def fan_saves_in_rows(seg: int, rd: bool) -> bool:
+    """Whether the fan kernel (``csrc/trace_fan.cu``, ``trace_fan_kernel``'s
+    ``ROWS``) writes a launch's save grids as (B, nseg+1) rows, each ray its
+    own (the range-independent spectral mode: ``seg`` 0, not ``rd``), or as
+    (nseg+1, B) columns, which ``trace_kernel`` transposes (the block-wide
+    modes: range-dependent spectral and segment fits)."""
+    return seg == 0 and not rd
+
+
 def _seg_mode(env, settings) -> int:
     """The fan kernel's profile mode: 0 spectral (or no kernel mode: a
     table profile), 1 the segment fit in basis "pow" (Horner), 2 in basis
@@ -459,8 +468,8 @@ def trace_kernel(env, z0, p0, geom, settings, geo=None) -> TraceResult:
     x0, x1, h, sps, nseg = geom
     inp = _inputs(env, z0, p0, geom, settings, stations=True, geo=geo)
     B = inp.p0.shape[0]
-    num_save = nseg + 1
-    ts = torch.empty((num_save, B), dtype=torch.float32, device=dev)
+    rows = fan_saves_in_rows(inp.consts.seg, inp.rd)
+    ts = torch.empty((B, nseg + 1) if rows else (nseg + 1, B), dtype=torch.float32, device=dev)
     zs = torch.empty_like(ts)
     ps = torch.empty_like(ts)
     n_surf = torch.empty(B, dtype=torch.int32, device=dev)
@@ -482,19 +491,23 @@ def trace_kernel(env, z0, p0, geom, settings, geo=None) -> TraceResult:
                 inp, geom)
         LAUNCHES += 1
         SEG_LAUNCHES += bool(c.seg)
+    if not rows:
+        ts, zs, ps = (g.t().contiguous() for g in (ts, zs, ps))
+    return _fan_result(x0, x1, ts, zs, ps, n_surf, n_bott, death, dseg)
 
+
+def _fan_result(x0, x1, ts, zs, ps, n_surf, n_bott, death, dseg) -> TraceResult:
+    """The ``TraceResult`` of a fan kernel launch from its outputs: the
+    (B, nseg+1) save grids ``ts``, ``zs``, ``ps``, the (B,) counters and
+    death codes, and ``dseg``, each ray's first save index at which it is
+    dead (nseg+1 for a ray alive at the end); ``x0``, ``x1``: the range of
+    the plan."""
+    nseg = ts.shape[1] - 1
     # alive at save point k  <=>  k precedes the ray's first-dead save index
-    alive_save = torch.arange(num_save, dtype=torch.int32, device=dev)[None, :] < dseg[:, None]
+    saves = torch.arange(nseg + 1, dtype=torch.int32, device=ts.device)
     return TraceResult(
-        rs=_save_ranges(x0, x1, nseg, ts),
-        ts=ts.t().contiguous(),
-        zs=zs.t().contiguous(),
-        ps=ps.t().contiguous(),
-        n_bott=n_bott,
-        n_surf=n_surf,
-        alive=death == 0,
-        alive_save=alive_save,
-        death_code=death,
+        rs=_save_ranges(x0, x1, nseg, ts), ts=ts, zs=zs, ps=ps, n_bott=n_bott, n_surf=n_surf,
+        alive=death == 0, alive_save=saves[None, :] < dseg[:, None], death_code=death,
     )
 
 

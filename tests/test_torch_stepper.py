@@ -159,6 +159,46 @@ def test_trace_kernel_cpu_range_dependent_is_the_torch_op_loop():
                                       for r in inp.rows)
 
 
+def test_fan_result_reads_the_kernels_layout():
+    """The CUDA branch's result assembly (``stepper._fan_result``), given the
+    plain version's arrays as the range-independent fan kernel writes them —
+    (B, nseg+1) save grids, the (B,) counters and death codes, and each
+    ray's first dead save index — is the plain version's ``TraceResult``,
+    field for field."""
+    _, te = env_pair("flat")
+    x0, x1 = 1234.5, 20e3
+    h, sps, nseg = _plan(x0, x1, 5, 500.0)
+    geom = (x0, x1, h, sps, nseg)
+    angles = np.array([-89.0, -45.0, -12.0, 0.0, 12.0, 30.0, 0.0])
+    z0 = np.full(len(angles), 1300.0)
+    z0[-1] = 6500.0  # below z_dom: dead at launch
+    p0 = np.sin(np.radians(-angles)) / 1500.0
+    ref = _trace_impl(te, z0, p0, geom, SolverSettings(dx=500.0))
+    dseg = ref.alive_save.sum(1, dtype=torch.int32)  # alive_save: alive, then dead
+    assert {0, 1, nseg + 1} <= set(dseg.tolist()) and {1, 2} <= set(ref.death_code.tolist())
+    got = stepper._fan_result(x0, x1, ref.ts.clone(), ref.zs.clone(), ref.ps.clone(), ref.n_surf,
+                              ref.n_bott, ref.death_code, dseg)
+    assert got.ts.shape == (len(angles), nseg + 1)
+    for f in dataclasses.fields(ref):
+        a, b = getattr(got, f.name), getattr(ref, f.name)
+        assert a.dtype == b.dtype and torch.equal(a, b), f.name
+
+
+def test_fan_saves_in_rows_mirrors_the_kernel():
+    """``stepper.fan_saves_in_rows`` is the kernel's choice of save layout
+    (``ROWS`` in ``csrc/trace_fan.cu``): (B, nseg+1) rows in the
+    range-independent spectral mode, (nseg+1, B) columns in the block-wide
+    ones (range-dependent, segment fits)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(stepper.__file__).parent.parent / "csrc" / "trace_fan.cu").read_text()
+    assert re.findall(r"constexpr bool ROWS = (.*);", src) == ["SEG == 0 && !RD"]
+    for seg in (0, 1, 2):
+        for rd in (False, True):
+            assert stepper.fan_saves_in_rows(seg, rd) == (seg == 0 and not rd), (seg, rd)
+
+
 def _settings(**kw):
     return JSettings(**kw), SolverSettings(**kw)
 

@@ -85,6 +85,17 @@ The cases:
   37.5 Hz), synchronized, the median of 5 after a warm call;
 * ``b1a_headline``: ``trace_kernel`` at the headline fan (BASELINE config
   0: 102,400 rays over ±15°, 100 km, 50 saves, dx = 200 m: 490 steps);
+  ``b1a_clenshaw``: the same fan on the field's Clenshaw series;
+  ``b1a_eigen3``: the full-save fan of ``find_eigenrays`` at BASELINE
+  config 3 (its 156 eigenray angles on the headline field, 50 saves);
+  ``b1a_impulse``: the first fan of ``impulse_response`` at
+  ``examples/impulse_response_demo.py``'s parameters
+  (``munk_env(r_max=100e3, nr=50, nz=1200)``, 2,048 rays over ±14°, 400
+  saves, dx = 50 m: 1,995 steps);
+* ``b1a_host_split``: the wrapper's host time at the headline fan, split:
+  ``stepper.step_geometry`` alone, ``trace_kernel`` given that geometry
+  (the rest of the wrapper), and the whole call (medians of 20, each call
+  on an idle card, none waiting for it);
 * ``b2_config3``, ``b2_fan8192``: ``trace_tangent_kernel`` on the headline
   field at the eigenray solver's 2-save plan (100 km, dx = 200 m: 500
   steps), over BASELINE config 3's eigenray angles (the 156 that
@@ -117,6 +128,7 @@ when a case needs it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -129,7 +141,8 @@ N_LAUNCH = 20
 # every case, in the order they run; --cases picks some of them
 CASES = ("b5_bench", "b1d_rough", "b1d_rough_narrow", "b1d_ri_pow", "b1d_ri_cheb", "b6_2d",
          "b6_inversion", "b1c_inversion", "b1c_config1", "mc_config4b", "b4_fan", "b4_newton",
-         "b3_tl", "b3_array", "b3_headline", "receiver_walls", "b1a_headline", "b2_config3",
+         "b3_tl", "b3_array", "b3_headline", "receiver_walls", "b1a_headline", "b1a_clenshaw",
+         "b1a_eigen3", "b1a_impulse", "b1a_host_split", "b2_config3",
          "b2_fan8192", "eigen_walls", "inversion_solve")
 B3_CASES = ("b3_tl", "b3_array", "b3_headline")
 
@@ -223,6 +236,7 @@ def child(root, only=CASES):
         c_src = float(np.interp(SRC, z, pt.munk_ssp(z)))
         dcs, dcps = _directions(_deriv_matrix(env))
         return {"z": z, "r": r, "env": env, "c_src": c_src, "s": pt.SolverSettings(dx=200.0),
+                "env_c": dataclasses.replace(env, poly_ok=False),
                 "g": geom(100e3, 200.0), "dcs": dcs, "dcps": dcps,
                 "p0": p0_of(c_src, np.linspace(-14.0, 14.0, 512)),
                 "p8": p0_of(c_src, np.linspace(-18.0, 18.0, 8192)),
@@ -374,7 +388,28 @@ def child(root, only=CASES):
                               if len(er.launch_angles[i])])
         return {"calls": calls, "p0_3": p0_of(h["c_src"], th3)}
 
-    FIELDS = {"headline": f_headline, "jac2d": f_jac2d, "inversion": f_inversion,
+    def f_impulse():
+        """impulse_response's first fan at the demo's parameters"""
+        from pygenray_tpu_torch.envdata import host_profile_tables
+        from pygenray_tpu_torch.models import munk_env
+
+        env = munk_env(r_max=100e3, nr=50, nz=1200).env_data(flatearth=False)
+        c_src = float(pt.bilinear_np(0.0, SRC, *host_profile_tables(env)))
+        return {"env": env, "s": pt.SolverSettings(dx=50.0), "g": geom(100e3, 50.0, 400),
+                "p0": p0_of(c_src, np.linspace(-14.0, 14.0, 2048))}
+
+    def host_split():
+        """the wrapper's host time at the headline fan: step_geometry, the
+        rest given it, the whole call (ms, medians of N_LAUNCH)"""
+        h = field("headline")
+        geo = stepper.step_geometry(h["env"], h["g50"])
+        call = lambda g=None: stepper.trace_kernel(h["env"], SRC, h["p_head"], h["g50"], h["s"],
+                                                   g)
+        return {"step_geometry_ms": host(lambda: stepper.step_geometry(h["env"], h["g50"])),
+                "rest_ms": host(lambda: call(geo)), "whole_ms": host(call)}
+
+    FIELDS = {"headline": f_headline, "impulse": f_impulse, "jac2d": f_jac2d,
+              "inversion": f_inversion,
               "config1": f_config1, "rough": f_rough, "seg_ri": f_seg_ri, "config4b": f_config4b,
               "receiver": f_receiver, "eigen": f_eigen}
 
@@ -491,6 +526,13 @@ def child(root, only=CASES):
         "b4_newton": lambda: (b4("newton"), "tangent_ens"),
         "b1a_headline": lambda: (lambda h=field("headline"): stepper.trace_kernel(
             h["env"], SRC, h["p_head"], h["g50"], h["s"]), "trace_fan"),
+        "b1a_clenshaw": lambda: (lambda h=field("headline"): stepper.trace_kernel(
+            h["env_c"], SRC, h["p_head"], h["g50"], h["s"]), "trace_fan"),
+        "b1a_eigen3": lambda: (lambda h=field("headline"), p=field("eigen")["p0_3"]:
+                               stepper.trace_kernel(h["env"], SRC, p, h["g50"], h["s"]),
+                               "trace_fan"),
+        "b1a_impulse": lambda: (lambda f=field("impulse"): stepper.trace_kernel(
+            f["env"], SRC, f["p0"], f["g"], f["s"]), "trace_fan"),
         "b2_config3": lambda: (lambda h=field("headline"), p=field("eigen")["p0_3"]:
                                stepper.trace_tangent_kernel(h["env"], SRC, p, 1.0, h["g"],
                                                             h["s"]), "trace_tangent"),
@@ -509,6 +551,8 @@ def child(root, only=CASES):
             out[name] = receiver_walls()
         elif name == "eigen_walls":
             out[name] = eigen_walls()
+        elif name == "b1a_host_split":
+            out[name] = host_split()
         elif name == "inversion_solve":
             f = field("inversion")
             out[name] = inversion_solve(torch, pt, dev, f["z"], f["r"], f["env"], f["s"])
@@ -521,6 +565,8 @@ def child(root, only=CASES):
                                  K=int(env.c_cheb.shape[-1]), horner=bool(env.poly_ok))
     if "b1d_rough" in out:
         out["b1d_rough"]["seg_terms"] = int(field("rough")["env"].c_seg.shape[-2])
+    if "b1a_eigen3" in out:
+        out["b1a_eigen3"]["rays"] = len(field("eigen")["p0_3"])
     if "b2_config3" in out:
         out["b2_config3"]["rays"] = len(field("eigen")["p0_3"])
     from pygenray_tpu_torch.ops import _build

@@ -24,7 +24,8 @@ equal to any NaN.  Prints one line a case; exits 1 on any difference.
 The host's libm rounds sin, cos and 1/sqrt apart from the card's, so the
 numbers are the host build's: this checks that two versions of the kernel
 code compute the same thing, not the card's values (``chip_smoke.py`` does
-that).  A few seconds of g++ and about a minute of tracing.
+that).  A few seconds of g++ and about a minute of tracing.  ``build``
+and its stand-in header also serve ``tools/host_fan_rehearsal.py``.
 """
 
 from __future__ import annotations
@@ -66,8 +67,15 @@ struct dim3 {
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 74 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+struct float2 { float x, y; };
+struct __attribute__((aligned(16))) float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 using std::max;
 using std::min;
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
@@ -107,20 +115,31 @@ void host_launch(dim3 grid, unsigned block, size_t, cudaStream_t, F kern, A... a
 """
 
 
-def build(root, out):
-    """Host libraries of ``root``'s B2 and B3 under ``out``: {name: path}."""
+def build(root, out, names=("trace_tangent", "trace_tangent_save")):
+    """Host libraries of ``root``'s kernel sources ``names`` (``csrc/<name>.cu``;
+    by default B2 and B3) under ``out``: {name: path}."""
     csrc = out / "csrc"
     shutil.copytree(pathlib.Path(root) / "pygenray_tpu_torch" / "csrc", csrc)
     (out / "shim").mkdir()
     (out / "shim" / "cuda_runtime.h").write_text(SHIM)
     for f in csrc.iterdir():
-        t = re.sub(r"(\w+<[^<>;]*>)<<<([^>]*)>>>\(", r"host_launch(\2, \1, ", f.read_text())
+        t = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\(", r"host_launch(\2, \1, ",
+                   f.read_text())
+        # dynamic shared memory: one 256 KB array, 16-byte aligned
+        t = re.sub(r"extern __shared__ (__align__\(\d+\) )?float (\w+)\[\];",
+                   r"static __align__(16) float \2[1 << 16];", t)
         t = re.sub(r"(void cp_async(16|4)\(float\* dst, const float\* src\) \{).*?\n\}",
                    r"\1 memcpy(dst, src, \2); }", t, flags=re.S)
         t = re.sub(r'asm volatile\("cp\.async\.[a-z_]+ ?[0-9]*;\\n" ::: "memory"\);', "", t)
+        # the fan kernel's one-instruction max, min and 1/sqrt
+        t = re.sub(r'asm\("(max|min)\.NaN\.f32 %0, %1, %2;" : "=f"\(r\) : "f"\(x\), "f"\(y\)\);',
+                   lambda m: "r = x != x ? x : (y != y ? y : (x %s y ? x : y));"
+                   % (">" if m.group(1) == "max" else "<"), t)
+        t = re.sub(r'asm\("rsqrt\.approx\.ftz\.f32 %0, %1;" : "=f"\(r\) : "f"\(x\)\);',
+                   "r = rsqrtf(x);", t)
         f.write_text(t)
     libs = {}
-    for name in ("trace_tangent", "trace_tangent_save"):
+    for name in names:
         libs[name] = out / f"lib{name}.so"
         subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
                         "-pthread", "-I", str(out / "shim"), "-x", "c++",
