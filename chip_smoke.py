@@ -189,6 +189,17 @@ ORACLE_BUDGET_MS = 0.1  # BASELINE.json travel-time budget
 # terms, 64 rays over ±12°, dx = 100 m); examples/gradient_inversion_demo.py
 # at its full parameters
 JAC_RAYS, JAC_SPAN, JAC_BOUNCE_SPAN = 512, 14.0, 30.0
+# B5's lane mapping (a lane pair a direction of a ray) at other shapes than
+# bench.py's 16 directions: COEF_LANE_RAYS rays over ±COEF_LANE_SPAN° to
+# RI_K_X1, on the headline field along COEF_LANE_DIRS random directions
+# (pairs and rays straddling warps; one plain run over all of them), and on
+# the exact-order fits of RI_K_ORDERS (K = 32 and 64 compiled fixed, 41 at
+# run time, from shared memory) along their K unit directions
+COEF_LANE_RAYS, COEF_LANE_SPAN = 128, 18.0
+COEF_LANE_DIRS = (3, 24)
+B5_LAYOUT = ("a lane pair a (ray, direction), one ray a warp at 16 directions: c on the even "
+             "lane, dc/dz on the odd, swapped by a whole-warp shuffle; each lane's 2K rows in "
+             "registers up to K = 64")  # csrc/trace_coef_tangent.cu
 JAC2 = {"nz": 2000, "nr": 32, "rays": 64, "span": 12.0, "dx": 100.0, "order": 15}
 INV = {"r_max": 60e3, "nr": 9, "K": 32, "B": 128, "iters": 150, "nz": 1200, "dx": 200.0,
        "lr": 0.03, "lam": 1e-10, "drop": 0.05}
@@ -1547,24 +1558,21 @@ def adjoint_context(cx):
                  for label, span in (("bench", JAC_SPAN), ("bounce", JAC_BOUNCE_SPAN))}
 
 
-def coef_tangent_phase(cx):
-    """B5 and B6 against their plain versions at bench.py's shapes: B5 on
-    the headline field over 512 rays at ±14° and over a bottom-bouncing 512
-    at ±30° (one plain run over both fans side by side: its arithmetic is
-    elementwise over rays), 16 unit directions, 100 km at dx = 200 m; B6 on
-    bench.py's 2D field, 64 rays × 16 directions × 32 stations, 1,000 steps.
-    Each primal against the final-state tangent kernel (B2) on the same
-    Clenshaw environment; Σ_j of B6 over stations against B5 on the
-    headline field in the range-dependent layout.  Returns (worst errors,
-    times)."""
+def b5_fans_phase(cx):
+    """B5 against its plain version at bench.py's Jacobian: the headline
+    field over 512 rays at ±14° and over a bottom-bouncing 512 at ±30° (one
+    plain run over both fans side by side: its arithmetic is elementwise
+    over rays), 16 unit directions, 100 km at dx = 200 m; each primal
+    against the final-state tangent kernel (B2) on the same Clenshaw
+    environment.  Returns ({fan: outputs}, [worst errors], plain ms, geom,
+    (dcoef, dcpcoef))."""
     import dataclasses as dc
 
-    from pygenray_tpu_torch.integrate import _trace_coef_tangent_impl, _trace_coef_tangent_rd_impl
+    from pygenray_tpu_torch.integrate import _trace_coef_tangent_impl
 
     torch, st = cx.torch, cx.stepper
     env, s = cx.env_h, cx.settings
-    h, sps, nseg = cx.plan(0.0, R_MAX, 2, DX)
-    geom = (0.0, R_MAX, h, sps, nseg)
+    geom = (0.0, R_MAX, *cx.plan(0.0, R_MAX, 2, DX))
     dcs, dcps = unit_directions(cx, env)
     outs, errs = {}, []
     for label, p0 in cx.p0_jac.items():
@@ -1576,7 +1584,7 @@ def coef_tangent_phase(cx):
     both = _trace_coef_tangent_impl(env, SRC_DEPTH, torch.cat(list(cx.p0_jac.values())), dcs,
                                     dcps, geom, s)
     torch.cuda.synchronize()
-    plain5_ms = (time.perf_counter() - t0) * 1e3
+    plain_ms = (time.perf_counter() - t0) * 1e3
     env_c = dc.replace(env, poly_ok=False)
     lo = 0
     for label, p0 in cx.p0_jac.items():
@@ -1587,6 +1595,24 @@ def coef_tangent_phase(cx):
         coef_lockstep(f"b5_{label}", outs[label],
                       st.trace_tangent_kernel(env_c, SRC_DEPTH, p0, 0.0, geom, s))
     require(int((outs["bounce"][7] > 0).sum()) > 0, "the ±30° fan does not reach the bottom")
+    return outs, errs, plain_ms, geom, (dcs, dcps)
+
+
+def coef_tangent_phase(cx):
+    """B5 and B6 against their plain versions at bench.py's shapes: B5 as
+    ``b5_fans_phase``; B6 on bench.py's 2D field, 64 rays × 16 directions ×
+    32 stations, 1,000 steps, its primal against the final-state tangent
+    kernel (B2) on the same Clenshaw environment; Σ_j of B6 over stations
+    against B5 on the headline field in the range-dependent layout.
+    Returns (worst errors, times, B5's bench.py launch)."""
+    import dataclasses as dc
+
+    from pygenray_tpu_torch.integrate import _trace_coef_tangent_rd_impl
+
+    torch, st = cx.torch, cx.stepper
+    env, s = cx.env_h, cx.settings
+    outs, errs, plain5_ms, geom, (dcs, dcps) = b5_fans_phase(cx)
+    sps, nseg = geom[3], geom[4]
     b5_ms = events_ms(lambda: st.trace_coef_tangent_kernel(env, SRC_DEPTH, cx.p0_jac["bench"],
                                                            dcs, dcps, geom, s), n=10)
     b5_bound, b5_by = coef_bound(outs["bench"], env, sps * nseg)
@@ -1634,6 +1660,68 @@ def coef_tangent_phase(cx):
     }
     emit("times_coef_tangent", card=cx.smi, **times)
     return worst_err, times, outs["bench"]
+
+
+def random_directions(cx, env, D, seed):
+    """D coefficient directions of ``env``'s fit drawn from a seeded normal
+    distribution, dc/dz chained through the Chebyshev derivative matrix as
+    ``unit_directions`` chains unit ones, float32 on the card."""
+    from pygenray_tpu_torch.adjoint import cheb_derivative_matrix
+
+    K = env.c_cheb.shape[-1]
+    dc = np.random.default_rng(seed).standard_normal((D, K))
+    return on_card(cx, dc), on_card(cx, dc @ np.asarray(cheb_derivative_matrix(K, *env.z_dom)).T)
+
+
+def coef_lanes_phase(cx):
+    """B5 (the range-independent coefficient-tangent kernel) against its
+    plain version beside bench.py's shapes: ``COEF_LANE_RAYS`` rays over
+    ±``COEF_LANE_SPAN``° to ``RI_K_X1``, the headline field along
+    ``COEF_LANE_DIRS`` random directions (one launch each, one plain run
+    over all of them: its arithmetic is elementwise over directions) and the
+    exact-order fits of ``RI_K_ORDERS`` along their K unit directions; each
+    primal against B2 on the same Clenshaw field.  Returns (worst errors,
+    {case: [K, D]})."""
+    import dataclasses as dc
+
+    from pygenray_tpu_torch.integrate import _trace_coef_tangent_impl
+
+    torch, pt, st, s = cx.torch, cx.pt, cx.stepper, cx.settings
+    z, r = np.linspace(0.0, 6000.0, NZ), np.linspace(0.0, R_MAX, NR)
+    geom = (0.0, RI_K_X1, *cx.plan(0.0, RI_K_X1, 2, DX))
+    angles = np.linspace(-COEF_LANE_SPAN, COEF_LANE_SPAN, COEF_LANE_RAYS)
+    errs, shapes = [], {}
+
+    def case(name, env, p0, dcs, dcps, out_p):
+        n0 = st.COEF_TANGENT_LAUNCHES
+        out_k = st.trace_coef_tangent_kernel(env, SRC_DEPTH, p0, dcs, dcps, geom, s)
+        require(st.COEF_TANGENT_LAUNCHES == n0 + 1, f"{name}: the kernel did not launch")
+        errs.append(compare_coef(name, out_k, out_p))
+        coef_lockstep(name, out_k, st.trace_tangent_kernel(dc.replace(env, poly_ok=False),
+                                                           SRC_DEPTH, p0, 0.0, geom, s))
+        shapes[name] = [int(env.c_cheb.shape[-1]), int(dcs.shape[0])]
+
+    env = cx.env_h
+    p0 = on_card(cx, launch_p0(pt, env, angles))
+    dirs = [random_directions(cx, env, D, D) for D in COEF_LANE_DIRS]
+    both = _trace_coef_tangent_impl(env, SRC_DEPTH, p0, torch.cat([d for d, _ in dirs]),
+                                    torch.cat([dp for _, dp in dirs]), geom, s)
+    lo = 0
+    for (dcs, dcps), D in zip(dirs, COEF_LANE_DIRS):
+        out_p = list(both[:3]) + [a[lo:lo + D] for a in both[3:6]] + list(both[6:])
+        lo += D
+        case(f"b5_K16_D{D}", env, p0, dcs, dcps, out_p)
+    for order in RI_K_ORDERS:
+        fit = pt.make_env_data(np.outer(np.ones(NR), pt.munk_ssp(z)), r, z, np.full(NR, 5000.0),
+                               r, dtype=torch.float32, device=cx.dev, cheb_order=order,
+                               cheb_exact_order=True)
+        require(fit.c_cheb.shape[-1] == order + 1 and not fit.range_dependent,
+                f"the K = {order + 1} Munk fit is not a range-independent field")
+        p0 = on_card(cx, launch_p0(pt, fit, angles))
+        dcs, dcps = unit_directions(cx, fit)
+        case(f"b5_K{order + 1}_D{order + 1}", fit, p0, dcs, dcps,
+             _trace_coef_tangent_impl(fit, SRC_DEPTH, p0, dcs, dcps, geom, s))
+    return {f: max(e[f] for e in errs) for f in COEF_FIELDS[:6]}, shapes
 
 
 def adjoint_paths_phase(cx, b5_bench):
@@ -1698,7 +1786,8 @@ def inversion_start(cx):
 
 def profiler_split_phase(cx):
     """Where the launches' time goes (``split_ms``): the fan kernel at the
-    headline fan and at BASELINE config 1, B6 at bench.py's 2D Jacobian, B6 and
+    headline fan and at BASELINE config 1, B5 at bench.py's Jacobian, B6 at
+    bench.py's 2D Jacobian, B6 and
     the 2-save fan launch at the inversion step's shapes (on the
     inversion's starting field), the ensemble tangent kernel at config
     4b's two shapes (``ens_shapes``, from one config 4b call; the step rows
@@ -1722,12 +1811,17 @@ def profiler_split_phase(cx):
     p0_h = on_card(cx, launch_p0(cx.pt, cx.env_h, np.linspace(-ANGLE_SPAN, ANGLE_SPAN,
                                                               NUM_RAYS)))
     g_h = (0.0, R_MAX, *cx.plan(0.0, R_MAX, NUM_SAVE, DX))
+    d_h, dp_h = unit_directions(cx, cx.env_h)
+    g_jac = (0.0, R_MAX, *cx.plan(0.0, R_MAX, 2, DX))
     cx.splits = {
         "b1a_headline": split_ms(lambda: st.trace_kernel(cx.env_h, SRC_DEPTH, p0_h, g_h,
                                                          cx.settings), "trace_fan"),
         "config1_fan": split_ms(lambda: st.trace_kernel(cx.env_rd, SRC_DEPTH, p0_rd,
                                                         (0.0, R_MAX, h, sps, nseg), cx.s_rd),
                                 "trace_fan"),
+        "b5_bench": split_ms(lambda: st.trace_coef_tangent_kernel(
+            cx.env_h, SRC_DEPTH, cx.p0_jac["bench"], d_h, dp_h, g_jac, cx.settings),
+            "coef_tangent"),
         "b6_2d": split_ms(lambda: st.trace_coef_tangent_rd_kernel(
             cx.env_j2, SRC_DEPTH, cx.p0_j2, d2, dp2, (0.0, R_MAX, h2, sps2, nseg2), cx.s_j2),
             "coef_tangent"),
@@ -2428,6 +2522,9 @@ def main() -> int:
     # ---- phases 22-26: the adjoint operators ---------------------------------
     coef_err, coef_times, b5_bench = coef_tangent_phase(cx)
     phase_done("22 coefficient tangents vs plain")
+    lane_err, lane_shapes = coef_lanes_phase(cx)
+    coef_err["b5"] = {f: max(e, lane_err[f]) for f, e in coef_err["b5"].items()}
+    phase_done("22b coefficient tangents, other K and D")
     adj_paths = adjoint_paths_phase(cx, b5_bench)
     phase_done("23 Jacobians")
     inv = inversion_phase(cx)
@@ -2600,12 +2697,17 @@ def main() -> int:
         "max_abs_err_T": coef_err["b5"]["T"],
         "max_abs_err_dz": coef_err["b5"]["dz"],
         "ms": coef_times["b5"]["kernel_event_ms"],
+        "kernel_ms": cx.splits["b5_bench"]["kernel_ms"],
         "plain_ms": coef_times["b5"]["plain_ms_both_fans"],
         "bound_ms": coef_times["b5"]["bound_ms"],
         "bound_by": coef_times["b5"]["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a ray tangent
         "shape": f"{JAC_RAYS} rays x 16 directions x {coef_times['b5']['steps']} steps",
         "plain_shape": f"{2 * JAC_RAYS} rays x 16 directions",
+        # csrc/trace_coef_tangent.cu, range-independent (B5)
+        "layout": B5_LAYOUT,
+        # [K, directions] of the comparisons beside bench.py's (coef_lanes_phase)
+        "compared_k_d": lane_shapes,
         "wall_ms_travel_time_jacobian": adj_paths["jacobian"]["median_ms"],
     }, {
         # trace_coef_tangent_f32's range-dependent kernel (B6) at bench.py's

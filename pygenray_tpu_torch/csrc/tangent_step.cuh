@@ -21,7 +21,14 @@
 //     B3, through tangent_trace.cuh);
 //   * `CoefRows<KC>` (coefficients that carry a tangent along a direction
 //     of the Chebyshev coefficients, weighted by a station's hat; Clenshaw
-//     only; the kernels B5 and B6) evaluates c and dc/dz in one loop.
+//     only; the range-dependent kernel B6) evaluates c and dc/dz in one
+//     loop;
+//   * `CoefPairRegs<KC>` and `CoefPairRows<KC>` (the same coefficients,
+//     range-independent; the kernel B5) have a lane pair carry one
+//     direction of one ray as `PairRows` does: the even lane evaluates c on
+//     {c[k], dc[k]}, the odd lane dc/dz on {cp[k], dcp[k]}, each lane its
+//     own rows, in registers or from shared memory; the swap's shuffle
+//     names the whole warp, whose lanes step together (`warp_steps`).
 // K is fixed at compile time when KC > 0.  Each recurrence keeps its own
 // operations in their order, so the bits do not move, and the two
 // independent chains overlap (on two lanes, or in one loop).
@@ -35,6 +42,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "dual.cuh"
 
@@ -100,18 +109,52 @@ struct CoefRows {
   float hat;
 };
 
-// both series, each by one lane of the pair (threads 2i and 2i + 1 of a
-// warp-aligned block), each recurrence in dhorner's or dclenshaw's order
-// (dual.cuh); the pair swaps its results through a shuffle of its two lanes
+// the (c, dc/dz) series with coefficients {a[k], da[k]} of one direction
+// of a range-independent fit (the hat is 1), evaluated by a lane pair as
+// `PairRows`: the even lane's rows are c's and the direction's dc, the odd
+// lane's dc/dz's and its dcp; KC > 0: K = KC at compile time.  A: where
+// the lane's rows are, `const float*` into shared memory (`CoefPairRows`)
+// or `float[KC]` in registers (`CoefPairRegs`, KC > 0)
+template <int KC, class A>
+struct CoefPair {
+  A a;
+  A da;
+};
+template <int KC>
+using CoefPairRows = CoefPair<KC, const float*>;
+template <int KC>
+using CoefPairRegs = CoefPair<KC, float[(KC > 0 ? KC : 1)]>;
+
+// Whether the lanes of a warp step together (every lane of the warp runs
+// each step and each branch that holds a shuffle, so that a shuffle names
+// the whole warp): the coefficient pairs' rows.  With a mask that names
+// only the pair, ptxas serializes a shuffle over the warp's distinct masks.
+template <class R>
+struct warp_steps {
+  static constexpr bool value = false;
+};
+template <int KC, class A>
+struct warp_steps<CoefPair<KC, A>> {
+  static constexpr bool value = true;
+};
+
+// the two lanes of a pair, threads 2i and 2i + 1 of a warp-aligned block:
+// each its own c or dc/dz series, the pair swapping the results through a
+// shuffle that names the lanes ``mask`` (the pair's, or the whole warp's)
+__device__ __forceinline__ void pair_swap(Dual mine, unsigned mask, Dual& c, Dual& cp) {
+  const bool odd = threadIdx.x & 1;
+  const Dual other = {__shfl_xor_sync(mask, mine.v, 1), __shfl_xor_sync(mask, mine.t, 1)};
+  c = odd ? other : mine;
+  cp = odd ? mine : other;
+}
+
+// both series, each by one lane of the pair, each recurrence in dhorner's
+// or dclenshaw's order (dual.cuh)
 template <bool POW, int KC>
 __device__ __forceinline__ void series2(const PairRows<KC>& r, int Kp, Dual u, Dual& c,
                                         Dual& cp) {
   const bool odd = threadIdx.x & 1;
-  const Dual mine = dpoly<POW>(odd ? r.cp : r.c, KC > 0 ? KC : Kp, u);
-  const unsigned pair = 3u << (threadIdx.x & 30);
-  const Dual other = {__shfl_xor_sync(pair, mine.v, 1), __shfl_xor_sync(pair, mine.t, 1)};
-  c = odd ? other : mine;
-  cp = odd ? mine : other;
+  pair_swap(dpoly<POW>(odd ? r.cp : r.c, KC > 0 ? KC : Kp, u), 3u << (threadIdx.x & 30), c, cp);
 }
 
 // the c series alone: both lanes evaluate it
@@ -224,6 +267,42 @@ __device__ __forceinline__ Dual series_c(const CoefRows<KC>& r, int Kp, Dual u) 
     b1 = t;
   }
   return coef_at(r.c, r.dc, r.hat, 0) + u * b1 - b2;
+}
+
+// Clenshaw over the Dual coefficients {a[k], da[k]} (coef_at's with the
+// hat 1), in CoefRows' order, the loop unrolled U times
+template <int KC, int U>
+__device__ __forceinline__ Dual dclenshaw_dc(const float* a, const float* da, int Kp, Dual u) {
+  const int K = KC > 0 ? KC : Kp;
+  Dual b1 = {0.0f, 0.0f}, b2 = {0.0f, 0.0f};
+#pragma unroll(U)
+  for (int k = K - 1; k >= 1; --k) {
+    const Dual t = Dual{a[k], da[k]} + 2.0f * u * b1 - b2;
+    b2 = b1;
+    b1 = t;
+  }
+  return Dual{a[0], da[0]} + u * b1 - b2;
+}
+
+// a lane's series (c on the even lane, dc/dz on the odd), swapped in the
+// pair; from shared memory the loop is unrolled 4 times, as FusedRows',
+// from registers fully
+template <bool POW, int KC, class A>
+__device__ __forceinline__ void series2(const CoefPair<KC, A>& r, int Kp, Dual u, Dual& c,
+                                        Dual& cp) {
+  static_assert(!POW, "coefficient tangents are evaluated by Clenshaw only");
+  constexpr int U = std::is_pointer<A>::value ? 4 : KC;
+  pair_swap(dclenshaw_dc<KC, U>(r.a, r.da, Kp, u), 0xffffffffu, c, cp);
+}
+
+// the c series alone (the crossing fix): each lane runs its own series and
+// the odd lane takes the even lane's c through the same swap, so no lane
+// holds a second set of rows
+template <bool POW, int KC, class A>
+__device__ __forceinline__ Dual series_c(const CoefPair<KC, A>& r, int Kp, Dual u) {
+  Dual c, cp;
+  series2<POW>(r, Kp, u, c, cp);
+  return c;
 }
 
 struct DDeriv {
@@ -376,7 +455,12 @@ __device__ __forceinline__ void step_rows(const Params& P, const StepInputs& in,
   const bool bott = (z1.v > b1) && (z.v <= b0);
   Dual dT_tot = dT, dz_tot = dz, p_new = p1;
   bool back_dead = false;
-  if (surf || bott) {
+  // lanes that step together run the fix when a live ray of the warp
+  // crosses (a dead ray's lanes step a copy that is dropped, so they do not
+  // vote), and only the crossing lanes keep its results (surf = bott =
+  // false leaves back_dead false and the counters as they were)
+  if (warp_steps<R>::value ? __any_sync(0xffffffffu, s.alive && (surf || bott))
+                           : (surf || bott)) {
     // localize the crossing inside the step (cubic Hermite in s)
     const float bnd0 = surf ? 0.0f : b0;
     const float bnd1 = surf ? 0.0f : b1;
@@ -418,7 +502,7 @@ __device__ __forceinline__ void step_rows(const Params& P, const StepInputs& in,
     const Dual hr = (1.0f - f) * hs;
     const DDeriv q1 = rhs<POW>(rm, P, z_c, p_ref);
     const DDeriv q2 = rhs<POW>(r1, P, z_c + hr * q1.kz, p_ref + hr * q1.kp);
-    if (!back_dead) {
+    if ((surf || bott) && !back_dead) {
       dT_tot = t_off + hr * 0.5f * (q1.kT + q2.kT);
       dz_tot = (z_c + hr * 0.5f * (q1.kz + q2.kz)) - z;
       p_new = p_ref + hr * 0.5f * (q1.kp + q2.kp);

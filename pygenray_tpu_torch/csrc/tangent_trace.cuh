@@ -147,7 +147,8 @@ __device__ __forceinline__ void trace_rays(const Params& P, int v16, const float
 
 // L::run<KC>(a...): KC = K for the spectral fit ladder's lengths
 // (envdata.py: orders 15, 23, 31, 47, 63, 95; mirrored by ops/stepper.py's
-// SAVE_FIXED_K), KC = 0 (K at run time) for any other K
+// SAVE_FIXED_K), KC = 0 (K at run time) for any other K; B2, B3 and the
+// range-independent coefficient-tangent kernel (trace_coef_tangent.cu)
 template <class L, class... A>
 int with_fixed_k(int K, A... a) {
   switch (K) {

@@ -31,6 +31,18 @@ The cases:
 * ``b5_bench``: ``trace_coef_tangent_kernel`` at ``bench.py``'s spectral
   Jacobian (the headline Munk field, K = 16; 512 rays over ±14°, 100 km,
   dx = 200 m; the 16 unit directions);
+* ``b5_bounce``: the same on a bottom-bouncing fan, 512 rays over ±30°
+  (``chip_smoke.py``'s ``JAC_BOUNCE_SPAN``);
+* ``b5_d4``, ``b5_d8``: ``b5_bench`` along the first 4 and 8 unit
+  directions only (a direction sweep: at 16 the card holds twice the warps
+  of 8);
+* ``b5_k32``, ``b5_k64``: the kernel on exact-order fits of the headline's
+  Munk profile with K = 32 and 64 (compiled fixed), 128 rays over ±18°
+  along the K unit directions, 30 km (``chip_smoke.RI_K_X1``), dx = 200 m;
+* ``b2_clenshaw_8192``: ``trace_tangent_kernel`` on the headline field's
+  Clenshaw series (as B5 reads it), 8,192 rays over ±14°, 100 km: the
+  thread count of ``b5_bench`` (512 rays x 16 directions), one plain
+  tangent a thread;
 * ``b6_2d``: ``trace_coef_tangent_rd_kernel`` at ``bench.py``'s 2D Jacobian
   (32 stations, axis deepening 2 m/km, nz = 2000, K = 16; 64 rays over
   ±12°, dx = 100 m);
@@ -112,8 +124,10 @@ The cases:
   launch a step), as ``chip_smoke.inversion_phase`` runs them: the wall
   time a step (synchronized at the end) and the misfit's drop.
 
-``b5_bench`` runs a kernel whose code the B2 redesign does not touch: it
-is the control for the machine's drift when B2 changes.  Beside the cases,
+``b3_tl`` and ``b6_2d`` run kernels whose code a B5 redesign does not
+touch (B6 shares B5's source): they are the controls for the machine's
+drift when B5 changes, as ``b5_bench`` is when another kernel changes.
+Beside the cases,
 ``ptxas`` gives each kernel's registers and spill stores and loads from the
 build's ``-Xptxas -v`` report, for the checkout that built its libraries
 (the first of its runs).
@@ -139,11 +153,11 @@ import numpy as np
 SRC = 1300.0
 N_LAUNCH = 20
 # every case, in the order they run; --cases picks some of them
-CASES = ("b5_bench", "b1d_rough", "b1d_rough_narrow", "b1d_ri_pow", "b1d_ri_cheb", "b6_2d",
+CASES = ("b5_bench", "b5_bounce", "b5_d4", "b5_d8", "b5_k32", "b5_k64", "b1d_rough", "b1d_rough_narrow", "b1d_ri_pow", "b1d_ri_cheb", "b6_2d",
          "b6_inversion", "b1c_inversion", "b1c_config1", "mc_config4b", "b4_fan", "b4_newton",
          "b3_tl", "b3_array", "b3_headline", "receiver_walls", "b1a_headline", "b1a_clenshaw",
          "b1a_eigen3", "b1a_impulse", "b1a_host_split", "b2_config3",
-         "b2_fan8192", "eigen_walls", "inversion_solve")
+         "b2_fan8192", "b2_clenshaw_8192", "eigen_walls", "inversion_solve")
 B3_CASES = ("b3_tl", "b3_array", "b3_headline")
 
 
@@ -239,9 +253,31 @@ def child(root, only=CASES):
                 "env_c": dataclasses.replace(env, poly_ok=False),
                 "g": geom(100e3, 200.0), "dcs": dcs, "dcps": dcps,
                 "p0": p0_of(c_src, np.linspace(-14.0, 14.0, 512)),
+                "p_bounce": p0_of(c_src, np.linspace(-30.0, 30.0, 512)),
                 "p8": p0_of(c_src, np.linspace(-18.0, 18.0, 8192)),
+                "p8_14": p0_of(c_src, np.linspace(-14.0, 14.0, 8192)),
                 "p_head": p0_of(c_src, np.linspace(-15.0, 15.0, 102_400)),
                 "g50": geom(100e3, 200.0, 50)}
+
+    def f_coef_k():
+        """exact-order fits of the headline's Munk profile, K = 32 and 64,
+        with their K unit directions and a 128-ray fan over ±18° to 30 km"""
+        from pygenray_tpu_torch.adjoint import _deriv_matrix, _directions
+
+        h = field("headline")
+        z, r = h["z"], h["r"]
+        out = {"g": geom(30e3, 200.0), "p0": p0_of(h["c_src"], np.linspace(-18.0, 18.0, 128))}
+        for order in (31, 63):
+            env = pt.make_env_data(np.outer(np.ones(32), pt.munk_ssp(z)), r, z,
+                                   np.full(32, 5000.0), r, dtype=torch.float32, device=dev,
+                                   cheb_order=order, cheb_exact_order=True)
+            out[order + 1] = (env, *_directions(_deriv_matrix(env)))
+        return out
+
+    def b5_k(K):
+        f, s = field("coef_k"), field("headline")["s"]
+        env, d, dp = f[K]
+        return lambda: stepper.trace_coef_tangent_kernel(env, SRC, f["p0"], d, dp, f["g"], s)
 
     def f_jac2d():
         """bench.py's 2D Jacobian field"""
@@ -408,7 +444,7 @@ def child(root, only=CASES):
         return {"step_geometry_ms": host(lambda: stepper.step_geometry(h["env"], h["g50"])),
                 "rest_ms": host(lambda: call(geo)), "whole_ms": host(call)}
 
-    FIELDS = {"headline": f_headline, "impulse": f_impulse, "jac2d": f_jac2d,
+    FIELDS = {"headline": f_headline, "impulse": f_impulse, "jac2d": f_jac2d, "coef_k": f_coef_k,
               "inversion": f_inversion,
               "config1": f_config1, "rough": f_rough, "seg_ri": f_seg_ri, "config4b": f_config4b,
               "receiver": f_receiver, "eigen": f_eigen}
@@ -504,6 +540,12 @@ def child(root, only=CASES):
     cases = {
         "b5_bench": lambda: (lambda h=field("headline"): stepper.trace_coef_tangent_kernel(
             h["env"], SRC, h["p0"], h["dcs"], h["dcps"], h["g"], h["s"]), "coef_tangent"),
+        "b5_bounce": lambda: (lambda h=field("headline"): stepper.trace_coef_tangent_kernel(
+            h["env"], SRC, h["p_bounce"], h["dcs"], h["dcps"], h["g"], h["s"]), "coef_tangent"),
+        **{f"b5_d{n}": (lambda n=n: (lambda h=field("headline"): stepper.trace_coef_tangent_kernel(
+            h["env"], SRC, h["p0"], h["dcs"][:n], h["dcps"][:n], h["g"], h["s"]), "coef_tangent"))
+           for n in (4, 8)},
+        **{f"b5_k{K}": (lambda K=K: (b5_k(K), "coef_tangent")) for K in (32, 64)},
         "b1d_rough": lambda: (lambda f=field("rough"): stepper.trace_kernel(
             f["env"], SRC, f["p0"], f["g"], f["s"]), "trace_fan"),
         "b1d_rough_narrow": lambda: (lambda f=field("rough"): stepper.trace_kernel(
@@ -538,6 +580,8 @@ def child(root, only=CASES):
                                                             h["s"]), "trace_tangent"),
         "b2_fan8192": lambda: (lambda h=field("headline"): stepper.trace_tangent_kernel(
             h["env"], SRC, h["p8"], 1.0, h["g"], h["s"]), "trace_tangent"),
+        "b2_clenshaw_8192": lambda: (lambda h=field("headline"): stepper.trace_tangent_kernel(
+            h["env_c"], SRC, h["p8_14"], 1.0, h["g"], h["s"]), "trace_tangent"),
         **{name: (lambda name=name: (b3(name), "tangent_save")) for name in B3_CASES},
     }
 
