@@ -43,7 +43,12 @@ shapes, on a bottom-bouncing fan and at the inversion's shapes, drives
 ``examples/gradient_inversion_demo.py``'s 150-step inversion through
 ``travel_times_of_coef`` at full size, and holds every adjoint operator to
 the JAX package's answers (``tests/fixtures/adjoint_jax_f32.npz``, written
-by ``tests/fixtures/make_adjoint_fixture.py``).  Each phase prints
+by ``tests/fixtures/make_adjoint_fixture.py``).  Demos: it runs nine of
+the ten ported example demos (``examples/torch_port/``, all but
+``tl_demo``) at full size through their ``run()``, each demo's own asserts
+the gate and its launches held to ``DEMO_KERNELS``, and holds the
+localization demo's ``torch.func.jvp`` columns at its final iterate to the
+save-grid tangent kernel's plain version.  Each phase prints
 one line; a ``phase_seconds`` line gives each phase's seconds and the
 script's total; the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero without that line.  It needs no network and
@@ -147,11 +152,18 @@ SEG_X1 = 30e3  # range of the segment-mode comparisons other than the rough shap
 # range of the save-grid tangent kernel's comparisons on the tangent fans
 # with three seeds: no main path runs these fans
 SAVE_FANS_X1 = 10e3
+# range of the fan kernel's and the final-state tangent kernel's
+# comparisons on the 8,192-ray fans over 100 km (phases 3 and 6; the
+# seamount fans are 20 km long and stay whole): no main path traces these
+# fans, and each kernel is held at its main-path shapes elsewhere (B1a at
+# the headline shape in phase 5, B1c at config 1's in phase 9, B2 at config
+# 3's batch in phase 9)
+EQ_FANS_X1 = 20e3
 # the fan kernel's range-independent spectral path at the other K it
 # compiles fixed (32, 64) and at one K read at run time (41): Chebyshev
 # orders of exact-order Munk fits, compared over RI_K_X1 with 10 saves
 RI_K_ORDERS = (31, 63, 40)
-RI_K_X1 = 30e3
+RI_K_X1 = 10e3
 SEG_S = 128  # segments of a segment fit (ops/seg.py SEG_S)
 # terms of the rough exact-order fits whose step tables take the layouts the
 # main path's 32 does not (stepper.seg_layout): one buffer, none
@@ -235,6 +247,27 @@ RF_B6_RAYS, RF_B6_DIRS = 64, 8
 RF_ORACLE_DX = 50.0
 COUNTERS = ("LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES",
             "TANGENT_ENS_LAUNCHES", "COEF_TANGENT_LAUNCHES", "COEF_TANGENT_RD_LAUNCHES")
+# the port's example demos (examples/torch_port/) that the demos phase runs
+# at full size, and the launch counters of the kernels each one's code
+# sends work to (every other count must stay 0): B1 the fan kernel
+# (LAUNCHES), B2 TANGENT_LAUNCHES, B3 TANGENT_SAVE_LAUNCHES, B4
+# TANGENT_ENS_LAUNCHES, B5 COEF_TANGENT_LAUNCHES, B6
+# COEF_TANGENT_RD_LAUNCHES.  The rough-field demo's float64 segment fit
+# takes the torch-op loop.  tl_demo is left out: at full size its field is
+# 71 % insonified on the card against its 80 % assert (ROADMAP C1); phase
+# 12 runs its computation (transmission_loss_field at its parameters).
+DEMOS_DIR = ROOT / "examples" / "torch_port"
+DEMO_KERNELS = {
+    "timefront_demo": ("LAUNCHES", "TANGENT_LAUNCHES"),
+    "amplitude_demo": ("LAUNCHES", "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES"),
+    "impulse_response_demo": ("LAUNCHES", "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES"),
+    "sensitivity_kernel_demo": ("COEF_TANGENT_LAUNCHES",),
+    "inversion_demo": ("LAUNCHES", "TANGENT_LAUNCHES"),
+    "monte_carlo_demo": ("LAUNCHES", "TANGENT_ENS_LAUNCHES"),
+    "rough_field_sensitivity_demo": (),
+    "gradient_inversion_demo": ("LAUNCHES", "COEF_TANGENT_RD_LAUNCHES"),
+    "localization_demo": ("LAUNCHES", "TANGENT_LAUNCHES", "TANGENT_SAVE_LAUNCHES"),
+}
 # final depth vs the oracle: the depth a 15-degree ray crosses within the
 # travel-time budget, 0.1 ms * 1500 m/s / sin(15 deg) = 0.58 m, rounded down
 ORACLE_DEPTH_M = 0.5
@@ -2158,6 +2191,90 @@ def adjoint_vs_jax_phase(cx):
     return errs
 
 
+def load_demo(name):
+    """The port's demo ``examples/torch_port/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_port_{name}", DEMOS_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def demos_phase(cx):
+    """Each demo of ``DEMO_KERNELS`` at full size on the card, through its
+    ``run(smoke=False, device="cuda")``: its own asserts are the gate, and
+    around each run the launch counts are set to 0 and read, each listed
+    kernel launched at least once and no other.  One line a demo: wall
+    seconds, launches and the demo's scalar results; each demo's seconds go
+    to ``phase_seconds``.  Then ``localization_jvp_phase`` at the
+    localization demo's final iterate."""
+    for name in DEMO_KERNELS:
+        mod, res = run_demo(cx, name)
+        phase_done(f"28 demo {name}")
+        if name == "localization_demo":
+            localization_jvp_phase(cx, mod, res)
+            phase_done("28b localization jvp vs plain")
+
+
+def run_demo(cx, name):
+    """``(module, result)`` of one demo's full-size run, its line printed and
+    its launches held to ``DEMO_KERNELS``."""
+    mod = load_demo(name)
+    res, wall, n = counted(cx, lambda: mod.run(smoke=False, device="cuda"))
+    small = lambda v: isinstance(v, np.ndarray) and v.ndim == 1 and v.size <= 16
+    emit("demo", name=name, card=cx.smi, seconds=wall,
+         launches={c: k for c, k in n.items() if k},
+         results={k: (v.tolist() if small(v) else v) for k, v in res.items()
+                  if isinstance(v, (int, float)) or small(v)})
+    for c in COUNTERS:
+        if c in DEMO_KERNELS[name]:
+            require(n[c] > 0, f"{name}: no {c} at full size")
+        else:  # SEG_LAUNCHES too: no demo's fit is a float32 segment fit
+            require(n[c] == 0, f"{name}: {n[c]} {c}, a kernel its code does not reach")
+    return mod, res
+
+
+def localization_jvp_phase(cx, loc, res):
+    """The localization demo's Gauss-Newton Jacobian at its final iterate
+    (z0, p0), over its whole range at its step (the shape the demo's
+    Gauss-Newton gives the save-grid tangent kernel):
+    ``jvp_columns`` (``torch.func.jvp`` through ``trace``, seeded in the
+    scalar z0, then with ones in p0: one save-grid tangent launch a seed)
+    against the kernel's plain version (``_trace_tangent_save_impl``) with
+    the same two seeds side by side in one batch.  The endpoints within
+    TOLS, the p0 columns within TAN_TOLS, the z0 columns within TAN_TOLS
+    scaled by Z0_SEED_SCALE (``compare_save_tangent``'s seed scaling).
+    (``backend="ops"`` would differentiate the torch-op loop op by op in
+    forward mode, many times slower at this fit's 64 terms.)"""
+    from pygenray_tpu_torch.integrate import _plan, _trace_tangent_save_impl
+
+    torch = cx.torch
+    env, z0, p0, r_max = res["env"], res["z0"], res["p0"], res["r_max"]
+    B = p0.shape[0]
+    out_k, _, n = counted(cx, lambda: loc.jvp_columns(env, z0, p0, r_max))
+    require_counts("localization jvp", n, TANGENT_SAVE_LAUNCHES=2)
+    geom = (0.0, r_max, *_plan(0.0, r_max, 2, loc.SETTINGS.dx))
+    one, zero = torch.ones_like(p0), torch.zeros_like(p0)
+    (res_p, (dts, dzs, _)), plain_s, _ = counted(cx, lambda: _trace_tangent_save_impl(
+        env, z0, torch.cat([p0, p0]), torch.cat([zero, one]), geom, loc.SETTINGS,
+        dz0=torch.cat([one, zero])))
+    out_p = (res_p.ts[:B, -1], res_p.zs[:B, -1], dts[:B, -1], dzs[:B, -1], dts[B:, -1],
+             dzs[B:, -1])
+    bounds = {"t_end": TOLS["ts"], "z_end": TOLS["zs"],
+              "dt_dz0": tuple(Z0_SEED_SCALE * b for b in TAN_TOLS["dT"]),
+              "dz_dz0": tuple(Z0_SEED_SCALE * b for b in TAN_TOLS["dz"]),
+              "dt_dp0": TAN_TOLS["dT"], "dz_dp0": TAN_TOLS["dz"]}
+    errs, ratios = {}, {}
+    for (f, bd), a, b in zip(bounds.items(), out_k, out_p):
+        d, ratios[f] = diff_ratio(a, b, *bd)
+        errs[f] = float(d.max())
+    emit("jvp_vs_plain", case="localization_final_iterate", rays=B, z0=float(z0),
+         steps=geom[3] * geom[4], plain_s=plain_s, max_abs_err=errs, max_err_over_bound=ratios)
+    for f, r in ratios.items():
+        require(r <= 1.0, f"localization jvp: {f} differs by {r:.3g} times its bound")
+
+
 def build_context(torch, pt, dev):
     """The environments, fans and settings the kernel comparisons share."""
     from pygenray_tpu_torch.integrate import _plan
@@ -2250,21 +2367,25 @@ def main() -> int:
     settings, env_h, env_c, env_b, env_s = cx.settings, cx.env_h, cx.env_c, cx.env_b, cx.env_s
     eq_angles, death_angles, z0_death = cx.eq_angles, cx.death_angles, cx.z0_death
     s_off = dataclasses.replace(settings, kahan=False, terminate_backwards=False)
+    # the 100 km fans over about EQ_FANS_X1 at the headline plan's step and
+    # save spacing (cut_plan)
+    (_, x_eq, *_), n_eq = cut_plan(R_MAX, NUM_SAVE, DX, EQ_FANS_X1)
     cases = (
-        ("horner", env_h, eq_angles, SRC_DEPTH, R_MAX, settings),
-        ("clenshaw", env_c, eq_angles, SRC_DEPTH, R_MAX, settings),
-        ("horner_curved_bottom", env_b, eq_angles, SRC_DEPTH, R_MAX, settings),
-        ("horner_kahan_off_no_term_back", env_h, eq_angles, SRC_DEPTH, R_MAX, s_off),
-        ("seamount_deaths", env_s, death_angles, z0_death, 20e3, settings),
-        ("seamount_kahan_off_no_term_back", env_s, death_angles, z0_death, 20e3, s_off),
+        ("horner", env_h, eq_angles, SRC_DEPTH, x_eq, n_eq, settings),
+        ("clenshaw", env_c, eq_angles, SRC_DEPTH, x_eq, n_eq, settings),
+        ("horner_curved_bottom", env_b, eq_angles, SRC_DEPTH, x_eq, n_eq, settings),
+        ("horner_kahan_off_no_term_back", env_h, eq_angles, SRC_DEPTH, x_eq, n_eq, s_off),
+        ("seamount_deaths", env_s, death_angles, z0_death, 20e3, NUM_SAVE, settings),
+        ("seamount_kahan_off_no_term_back", env_s, death_angles, z0_death, 20e3, NUM_SAVE,
+         s_off),
     )
     errs_all = []
-    for name, env, ang, z0, x1, s in cases:
-        h, sps, nseg = _plan(0.0, x1, NUM_SAVE, DX)
+    for name, env, ang, z0, x1, n_save, s in cases:
+        h, sps, nseg = _plan(0.0, x1, n_save, DX)
         p0 = torch.as_tensor(launch_p0(pt, env, ang), dtype=torch.float32, device=dev)
         z0 = torch.as_tensor(z0, dtype=torch.float32, device=dev)
         res_k = stepper.trace_kernel(env, z0, p0, (0.0, x1, h, sps, nseg), s)
-        res_p = pt.trace(env, z0, p0, 0.0, x1, NUM_SAVE, dataclasses.replace(s, backend="ops"))
+        res_p = pt.trace(env, z0, p0, 0.0, x1, n_save, dataclasses.replace(s, backend="ops"))
         torch.cuda.synchronize()
         errs_all.append(compare(name, res_k, res_p))
         if name == "seamount_deaths":
@@ -2355,13 +2476,14 @@ def main() -> int:
 
     # ---- phase 6: the tangent kernel vs its plain version ------------------
     # final state only, on the eigenray solver's plan (2 saves); the same
-    # fans as phase 3 plus BASELINE config 1's range-dependent field, every
-    # one over its full range
+    # fans as phase 3 plus BASELINE config 1's range-dependent field, each
+    # over EQ_FANS_X1 at its step (the seamount fan over its whole 20 km)
     env_rd, s_rd, tan_cases = cx.env_rd, cx.s_rd, cx.tan_cases
     require(stepper.tangent_supported(env_rd, settings),
             "config 1 env is not covered by the tangent kernels")
     tan_errs, tan_plain_ms = [], {}
     for name, env, ang, z0, x1, s in tan_cases:
+        x1 = min(x1, EQ_FANS_X1)
         h2, sps2, nseg2 = _plan(0.0, x1, 2, s.dx)
         g2 = (0.0, x1, h2, sps2, nseg2)
         p0 = torch.as_tensor(launch_p0(pt, env, ang), dtype=torch.float32, device=dev)
@@ -2485,6 +2607,7 @@ def main() -> int:
                           "bound_by": tan3_bound_by},
          tangent_fan8192={"rays": len(eq_angles), "steps": sps2 * nseg2,
                           "kernel_event_ms": tan_e_ms, "plain_ms": tan_plain_ms["horner"],
+                          "plain_range_m": EQ_FANS_X1,
                           "bound_ms": tan_e_bound_ms},
          fan_config1={"rays": NUM_RAYS, "steps": sps_rd * nseg_rd, "kernel_event_ms": rd_ms,
                       "kernel_ms": rd_split["kernel_ms"],
@@ -2535,6 +2658,9 @@ def main() -> int:
     # ---- phase 27: random fields ----------------------------------------------
     random_field_phase(cx)
     phase_done("27 random fields")
+
+    # ---- phase 28: the ported demos at full size -------------------------------
+    demos_phase(cx)
 
     err = worst(errs_all)
     launches_tan = eig["timefront"][1][1]
@@ -2591,7 +2717,8 @@ def main() -> int:
         "bound_by": tan3_bound_by,
         "library_ms": None,  # no single PyTorch call computes a ray tangent
         "ms_fan8192": tan_e_ms,
-        "plain_ms_fan8192": tan_plain_ms["horner"],
+        "plain_ms_fan8192": tan_plain_ms["horner"],  # compared over EQ_FANS_X1
+        "plain_range_m_fan8192": EQ_FANS_X1,
         "bound_ms_fan8192": tan_e_bound_ms,
         # the save-grid kernel's body (csrc/tangent_trace.cuh), one segment
         "layout": "one thread a ray, c and dc/dz in one loop",
