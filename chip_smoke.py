@@ -146,6 +146,7 @@ DUAL_FACTOR = 2.5
 # Monte Carlo: BASELINE config 4 (bench.py:479-509) and the rough field
 # (:558-595) at full width, 16 realizations each
 MC_E = 16
+MESH_N = 4  # devices of the mesh phase's repeated-device mesh
 MC_RAYS = 65_536
 ROUGH_DX = 100.0
 SEG_X1 = 30e3  # range of the segment-mode comparisons other than the rough shape
@@ -1178,12 +1179,13 @@ def mc_launch_p0(cx):
     return np.sin(np.radians(-np.linspace(-ANGLE_SPAN, ANGLE_SPAN, MC_RAYS))) / cx.c_src_mc
 
 
-def config4b_call(cx):
+def config4b_call(cx, mesh=None):
     """BASELINE config 4b's ``mc_eigenray_times`` (bench.py:537-556):
     512-angle ±14° fans over config 4's ensemble, receiver at 1300 m, 100
     km, ztol = 1 m."""
     return cx.pt.mc_eigenray_times(cx.env_mc, np.linspace(-14.0, 14.0, 512), 1300.0, SRC_DEPTH,
-                                   0.0, R_MAX, ztol=1.0, settings=cx.pt.SolverSettings(dx=DX))
+                                   0.0, R_MAX, ztol=1.0, settings=cx.pt.SolverSettings(dx=DX),
+                                   mesh=mesh)
 
 
 def ens_shapes(cx, mc):
@@ -1365,6 +1367,7 @@ def mc_paths_phase(cx):
         return res, n
 
     res, n = drive("config4", lambda: pt.trace_ensemble(cx.env_mc, SRC_DEPTH, p0, 0.0, R_MAX, 2, s4))
+    cx.mc_results = {"config4": res}
     alive = res.alive
     emit("config4_trace_ensemble", card=cx.smi, rays=MC_E * MC_RAYS, alive=int(alive.sum()),
          rays_per_s=MC_E * MC_RAYS / out["config4"]["median_s"], **out["config4"])
@@ -1390,6 +1393,7 @@ def mc_paths_phase(cx):
 
     res, n = drive("rough", lambda: pt.trace_ensemble(cx.env_sg, SRC_DEPTH, p0, 0.0, R_MAX, 2,
                                                       s_sg))
+    cx.mc_results["rough"] = res
     alive = res.alive
     emit("rough_trace_ensemble", card=cx.smi, rays=MC_E * MC_RAYS, alive=int(alive.sum()),
          rays_per_s=MC_E * MC_RAYS / out["rough"]["median_s"], **out["rough"])
@@ -1460,6 +1464,108 @@ def mc_vs_jax_phase(cx):
             f"within {ROUGH_TIME_S} s")
 
 
+def mesh_phase(cx, fan, fan_rd, fan_e, eig3, walls, mc_paths, mc):
+    """The mesh dispatch (``pygenray_tpu_torch.parallel``) through the user
+    API on ``make_mesh(devices=[card] * MESH_N)``, and on ``make_mesh()``
+    over every card when the machine has more than one, each case held bit
+    for bit to the unsharded kernel result an earlier phase computed (a
+    ray, a candidate, a realization is the same launch arithmetic however
+    the batch is split), with the launch counts set to 0 just before each
+    sharded call and read just after (each shard's from ``mesh.launches``):
+    the headline fan (B1a, phase 4's
+    ``fan``) and config 1's (B1c, phase 7's ``fan_rd``), MESH_N launches
+    each; config 3's ``find_eigenrays`` (B2 each shard's iterations, then
+    one full-save fan launch a shard; phase 8's ``eig3``, on phase 9's
+    ``fan_e``); config 4's and the rough field's ``trace_ensemble`` (16 B1c
+    and 16 B1d launches, ``mc_paths_phase``'s results); config 4b's
+    ``mc_eigenray_times`` (B4 counted a shard, 16 final fan launches); then
+    ``dryrun_multichip(MESH_N)``.  Each sharded wall (one synchronized
+    call) beside the unsharded one: phase 4's and 7's first calls, phase
+    9's config 3 median and ``mc_paths_phase``'s medians.  No plain
+    version runs here."""
+    from pygenray_tpu_torch.parallel import dryrun_multichip, make_mesh
+
+    torch, pt = cx.torch, cx.pt
+    angles = np.linspace(-ANGLE_SPAN, ANGLE_SPAN, NUM_RAYS)
+    p0 = on_card(cx, mc_launch_p0(cx))
+    meshes = [make_mesh(devices=[cx.dev] * MESH_N)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    same_fan = lambda a, b: all(np.array_equal(getattr(a, f), getattr(b, f))
+                                for f in ("thetas", "ts", "zs", "ps", "n_botts", "n_surfs"))
+    same_res = lambda a, b: all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "ts", "zs", "ps", "n_bott", "n_surf", "alive", "alive_save", "death_code"))
+    rows = {}
+    for mesh in meshes:
+        n = mesh.shape["rays"]
+        label = "x".join(str(d) for d in sorted(set(mesh.device_list), key=str)) + f"_{n}"
+        row = rows[label] = {}
+
+        def case(name, fn, unsharded_s, equal, **want):
+            got, wall, counts = counted(cx, fn)
+            ok = bool(equal(got))
+            row[name] = {"bit_for_bit": ok, "wall_s": wall, "unsharded_wall_s": unsharded_s,
+                         "launches": {c: v for c, v in counts.items() if v},
+                         "per_shard": mesh.launches}
+            require(ok, f"mesh {label} {name}: the sharded result differs from the unsharded")
+            require_counts(f"mesh {label} {name}", counts, **want)
+            return got, row[name]
+
+        case("headline_shoot_rays", lambda: pt.shoot_rays(
+            SRC_DEPTH, 0.0, angles, R_MAX, NUM_SAVE, cx.env_h, dx=DX, flatearth=False,
+            mesh=mesh), walls["headline"], lambda g: same_fan(g, fan), LAUNCHES=n)
+        case("config1_shoot_rays", lambda: pt.shoot_rays(
+            SRC_DEPTH, 0.0, angles, R_MAX, NUM_SAVE, cx.env_rd, dx=cx.s_rd.dx, flatearth=False,
+            mesh=mesh), walls["config1"], lambda g: same_fan(g, fan_rd), LAUNCHES=n)
+        rds = np.linspace(500.0, 2100.0, 64)
+
+        def eig_equal(er):  # the candidates keep their order, so the arrays do
+            return all(np.array_equal(er.launch_angles[i], eig3.launch_angles[i])
+                       and np.array_equal(er.ts[i], eig3.ts[i]) for i in range(len(rds)))
+
+        # a shard iterates until its own candidates converge: B2 launches
+        # the most Newton iterations of its candidates (those of candidate 0
+        # padding the last shard)
+        it = eig3.diagnostics["iterations"]
+        it = np.concatenate([it, np.repeat(it[:1], -len(it) % n)]).reshape(n, -1).max(axis=1)
+        _, r = case("config3_find_eigenrays", lambda: pt.find_eigenrays(
+            fan_e, rds, SRC_DEPTH, 0.0, R_MAX, NUM_SAVE, cx.env_h, ztol=1.0, flatearth=False,
+            dx=DX, mesh=mesh), walls["config3"], eig_equal,
+            LAUNCHES=n, TANGENT_LAUNCHES=int(it.sum()))
+        r["candidates"] = int(len(eig3.diagnostics["iterations"]))
+        require([c.get("TANGENT_LAUNCHES", 0) for c in r["per_shard"]] == it.tolist(),
+                f"mesh {label}: config 3's B2 launches a shard {r['per_shard']}, not {it}")
+        case("config4_trace_ensemble", lambda: pt.trace_ensemble(
+            cx.env_mc, SRC_DEPTH, p0, 0.0, R_MAX, 2, pt.SolverSettings(dx=DX), mesh=mesh),
+            mc_paths["config4"]["median_s"], lambda g: same_res(g, cx.mc_results["config4"]),
+            LAUNCHES=MC_E)
+        case("rough_trace_ensemble", lambda: pt.trace_ensemble(
+            cx.env_sg, SRC_DEPTH, p0, 0.0, R_MAX, 2, pt.SolverSettings(dx=ROUGH_DX), mesh=mesh),
+            mc_paths["rough"]["median_s"], lambda g: same_res(g, cx.mc_results["rough"]),
+            LAUNCHES=MC_E, SEG_LAUNCHES=MC_E)
+
+        def mc_equal(got):
+            return got["path"] == mc["path"] and all(
+                np.array_equal(got[k], mc[k], equal_nan=k in ("theta", "t", "z_resid"))
+                for k in ("valid", "theta", "t", "z_resid", "n_surf", "n_bott"))
+
+        # B4: the fan and each Newton iteration of the shard's realizations,
+        # at most the unsharded call's
+        b4 = mc_paths["config4b"]["launches"]["trace_tangent_ens_f32"]
+        _, r = case("config4b_mc_eigenray_times",
+                    lambda: config4b_call(cx, mesh=mesh), mc_paths["config4b"]["median_s"],
+                    mc_equal, LAUNCHES=MC_E, TANGENT_ENS_LAUNCHES=lambda v: n <= v <= n * b4)
+        r["unsharded_launches"] = mc_paths["config4b"]["launches"]
+        require(all(1 <= c.get("TANGENT_ENS_LAUNCHES", 0) <= b4 for c in r["per_shard"]),
+                f"mesh {label}: config 4b's B4 launches a shard {r['per_shard']}, unsharded {b4}")
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(n)
+        row["dryrun_multichip"] = {**dry, "wall_s": time.perf_counter() - t0}
+        require(dry["fan_launches"] == n and dry["ensemble_segment_launches"] == n,
+                f"mesh {label}: dryrun_multichip launched {dry}")
+    emit("mesh", card=cx.smi, devices=torch.cuda.device_count(), meshes=rows)
+
+
 def counted(cx, fn):
     """``(result, wall seconds, {counter: launches})`` of one synchronized
     call, every launch count set to 0 just before."""
@@ -1474,9 +1580,11 @@ def counted(cx, fn):
 
 
 def require_counts(name, got, **want):
-    """Every launch count is 0 but those named."""
-    full = {c: want.get(c, 0) for c in COUNTERS}
-    require(got == full, f"{name}: launches {got}, expected {full}")
+    """Every launch count is 0 but those named; a named count is a number
+    or a test of the count."""
+    ok = all(want[c](v) if callable(want.get(c)) else v == want.get(c, 0)
+             for c, v in got.items())
+    require(ok, f"{name}: launches {got}, expected {want} and 0 for the rest")
 
 
 def unit_directions(cx, env):
@@ -2641,6 +2749,12 @@ def main() -> int:
     mc_vs_jax_phase(cx)
     emit("times_mc", card=smi, segment_rough=seg_row, **ens_rows)
     phase_done("20-21 Monte Carlo vs JAX")
+
+    # ---- phase 21b: the device mesh ----------------------------------------------
+    mesh_phase(cx, fan, fan_rd, fan_e, eig["timefront"][0][0],
+               {"headline": main_s, "config1": rd_s,
+                "config3": latency["config3"]["median_ms"] / 1e3}, mc_paths, mc)
+    phase_done("21b mesh")
 
     # ---- phases 22-26: the adjoint operators ---------------------------------
     coef_err, coef_times, b5_bench = coef_tangent_phase(cx)

@@ -13,6 +13,8 @@ the tangent kernel ``csrc/trace_tangent.cu``), or one 2-save forward trace
 for ``"regula_falsi"`` (the forward kernel ``csrc/trace_fan.cu``), then the
 shared ``rootfind_update`` on tensors and one host check of ``any(active)``.
 The final full-save trace of the hit angles is one forward-kernel launch.
+On a device mesh (``mesh=``) the candidates shard over its devices, one
+such loop a shard.
 
 The reference's stale-index bookkeeping bug for failed brackets
 (`eigenrays.py:159-164`: the parallel branch records loop variable ``k``
@@ -58,14 +60,6 @@ def _empty_diagnostics():
     }
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "eigenray search across a device mesh is not ported yet (ROADMAP A11); "
-            "pass mesh=None"
-        )
-
-
 def _final_tangent(env, z0, p0, geom, settings):
     """``(z_end, alive, dz_end/dp0)`` of one batch (ODE convention) from one
     forward tangent seeded by ones.
@@ -97,8 +91,39 @@ def _final_tangent(env, z0, p0, geom, settings):
     return out[1], out[8] == 0, out[4]
 
 
-def _device_solve(env, x0, x1, num_range_save, settings, ztol, max_iter, use_newton,
+def _check_mesh(mesh):
+    """Raise on a mesh the candidate split cannot take, before any trace."""
+    if mesh is not None:
+        from .parallel.sharding import mesh_size
+
+        mesh_size(mesh, "find_eigenrays")
+
+
+def _device_solve(env, x0, x1, num_range_save, settings, ztol, max_iter, use_newton, mesh,
                   rd_a, th1_a, th2_a, z1_a, z2_a, c_src_a, z0_a):
+    """``_solve_on_device`` over every candidate, or with ``mesh`` over
+    each shard of the candidate axis on its device: the candidates padded
+    to a multiple of the device count with copies of candidate 0, each
+    shard iterating until its own candidates converge, the shards'
+    results concatenated and the copies sliced away (as the JAX package's
+    ``_device_solve``)."""
+    cols = np.stack([rd_a, th1_a, th2_a, z1_a, z2_a, c_src_a, z0_a])
+    solve = lambda e, c: _solve_on_device(e, x0, x1, num_range_save, settings, ztol, max_iter,
+                                          use_newton, *c)
+    if mesh is None:
+        return solve(env, cols)
+    from .parallel.sharding import mesh_size, replicate_env, run_shards
+
+    n = mesh_size(mesh, "find_eigenrays")
+    NB0 = cols.shape[1]
+    cols = np.concatenate([cols, np.repeat(cols[:, :1], -NB0 % n, axis=1)], axis=1)
+    outs = run_shards(mesh, solve, replicate_env(env, mesh), np.split(cols, n, axis=1),
+                      kernels=settings.backend != "ops")
+    return tuple(np.concatenate(parts)[:NB0] for parts in zip(*outs))
+
+
+def _solve_on_device(env, x0, x1, num_range_save, settings, ztol, max_iter, use_newton,
+                     rd_a, th1_a, th2_a, z1_a, z2_a, c_src_a, z0_a):
     """All root-finding iterations on the environment's device.
 
     A loop of at most ``max_iter + 2`` iterations, each one batched
@@ -217,10 +242,16 @@ def find_eigenrays(
     false-position iteration (the reference's ``eigenrays.py:206-268``).
 
     ``verbose`` shows per-iteration progress (a tqdm bar when tqdm is
-    installed); it keeps the iteration state on the host.  ``mesh`` must be
-    ``None``: the multi-device solve is not ported yet.
+    installed); it keeps the iteration state on the host.
+
+    ``mesh``: an optional 1D device mesh (``parallel.make_mesh``): the
+    (receiver depth × bracket) candidates shard across it for the
+    root-finding loop and the full-save trace, each shard on its device
+    iterating until its own candidates converge; candidate counts that do
+    not divide the mesh are padded with copies of candidate 0 and sliced
+    away.  The fan and the verbose host loop are not sharded.
     """
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     rtol = kwargs.get("rtol", 1e-9)
     flatearth = kwargs.get("flatearth", True)
     dx = kwargs.get("dx", None)
@@ -339,7 +370,7 @@ def find_eigenrays(
     use_newton = method == "newton"
     if not verbose:
         return _assemble(*_device_solve(
-            env, x0, x1, num_range_save, settings, ztol, max_iter, use_newton,
+            env, x0, x1, num_range_save, settings, ztol, max_iter, use_newton, mesh,
             rd_arr, th1, th2, z1, z2,
             np.full_like(th1, float(c_src)), np.full_like(th1, float(source_depth)),
         ))
@@ -412,9 +443,9 @@ def find_eigenrays_batch(
 
     Returns a list of C ``EigenRays``, each as ``find_eigenrays`` would
     return for that configuration.  ``device`` and ``mesh`` as for
-    ``find_eigenrays``.
+    ``find_eigenrays`` (the batched fan trace is not sharded).
     """
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     rtol = kwargs.get("rtol", 1e-9)
     flatearth = kwargs.get("flatearth", True)
     dx = kwargs.get("dx", None)
@@ -522,7 +553,7 @@ def find_eigenrays_batch(
 
     theta_hit, converged, dead, iterations, resid, full = _device_solve(
         env, x0, x1, num_range_save, settings, ztol, max_iter,
-        method == "newton", rd_arr, th1, th2, z1, z2, cand_cs, cand_z0,
+        method == "newton", mesh, rd_arr, th1, th2, z1, z2, cand_cs, cand_z0,
     )
 
     # ---- phase 4: assemble per-config EigenRays ----------------------------

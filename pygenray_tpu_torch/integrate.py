@@ -1078,6 +1078,12 @@ def trace(
     are saved on ``num_save`` equally spaced ranges; the final point is the
     exact end state.
 
+    ``p0`` may be a ``parallel.ShardedBatch`` (``parallel.shard_rays``):
+    each shard then traces on its own device, on the environment
+    replicated there (``parallel.replicate_env``), a per-ray ``z0`` split
+    as ``p0``, and the result is gathered on the mesh's first device in ray
+    order (``_trace_sharded``).
+
     ``calm``, ``dyn`` and ``hot`` are the JAX package's precomputed block
     classifications for its TPU kernel; the port has no such blocks, and
     anything but None raises ``ValueError``.
@@ -1113,11 +1119,15 @@ def _trace_planned(env: EnvData, z0, p0, geom, settings: SolverSettings,
     """``trace`` on the plan ``geom``; ``geo``: the plan's per-step inputs
     for the fan kernel (``ops.stepper.step_geometry``), which a caller that
     traces one geometry again and again builds once (built by the kernel's
-    wrapper when None; unused off the kernel)."""
+    wrapper when None; unused off the kernel and on a sharded ``p0``)."""
     if not geom[1] > geom[0]:
         raise ValueError("trace requires x1 > x0; mirror the environment for backwards shots")
     if settings.backend not in BACKENDS:
         raise ValueError(f"unknown backend {settings.backend!r}; use one of {BACKENDS}")
+    from .parallel.sharding import ShardedBatch
+
+    if isinstance(p0, ShardedBatch):
+        return _trace_sharded(env, z0, p0, geom, settings)
     need = (_wants_derivative(z0), _wants_derivative(p0), _env_wants_derivative(env))
     if any(need):
         return _trace_ad(env, z0, p0, geom, settings, *need)
@@ -1131,3 +1141,32 @@ def _trace_planned(env: EnvData, z0, p0, geom, settings: SolverSettings,
         if ok and (settings.backend == "kernel" or env.device.type == "cuda"):
             return trace_kernel(env, z0, p0, geom, settings, geo)
     return _trace_impl(env, z0, p0, geom, settings)
+
+
+def _trace_sharded(env: EnvData, z0, p0, geom, settings: SolverSettings) -> TraceResult:
+    """``_trace_planned`` once per shard of the sharded batch ``p0``, each
+    on the environment replicated on its device (the counterpart of the
+    JAX package's ``trace_pallas_sharded``: on a CUDA shard the kernel,
+    exactly as unsharded, on a CPU shard the plain version); the results
+    concatenated in ray order on the mesh's first device."""
+    from .parallel.sharding import replicate_env, run_shards, shard_like
+
+    mesh = p0.mesh
+    envs = replicate_env(env, mesh)
+    z0s = shard_like(z0, p0)
+    derivative = (_env_wants_derivative(env)
+                  or any(_wants_derivative(x) for x in (*z0s, *p0.chunks)))
+    outs = run_shards(mesh, lambda e, z, p: _trace_planned(e, z, p, geom, settings),
+                      envs, z0s, p0.chunks, threads=False if derivative else None,
+                      kernels=settings.backend != "ops")
+    return _gather_trace(mesh, outs)
+
+
+def _gather_trace(mesh, outs) -> TraceResult:
+    """The shards' ``TraceResult``s concatenated along their leading axis
+    (rays, or an ensemble's realizations) on the mesh's first device."""
+    from .parallel.sharding import gather
+
+    return dataclasses.replace(outs[0], **{
+        f.name: gather(mesh, [getattr(o, f.name) for o in outs])
+        for f in dataclasses.fields(TraceResult) if f.name != "rs"})

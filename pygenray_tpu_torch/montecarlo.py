@@ -22,10 +22,15 @@ axis E (``make_env_ensemble``, ``envdata.stack_env_data``).
   iteration loops run on device tensors with one host check of "any
   candidate active" per iteration, as ``eigenrays._device_solve`` does.
 
+On a device mesh (``mesh=``, ``parallel.make_mesh``) the realization axis
+splits over its devices (``parallel.sharding.ensemble_shards``; E must
+divide evenly): each shard traces and solves its own realizations on its
+device, so the ensemble tangent kernel takes E/n realizations a launch,
+and the results are concatenated in realization order.
+
 Not ported, being TPU workarounds or layout (ROADMAP): the table-gather ray
 chunking, and the calm and dyn block classifiers (``calm`` and ``dyn``
-must be None).  ``mesh`` raises ``NotImplementedError`` until the
-multi-device port.
+must be None).
 """
 
 from __future__ import annotations
@@ -36,7 +41,6 @@ import warnings
 import numpy as np
 import torch
 
-from .eigenrays import _no_mesh
 from .envdata import EnvData, env_member, host_profile_tables, make_env_data, stack_env_data
 from .integrate import SolverSettings, TraceResult, _ens_step_data, _plan, trace
 from .ops.host import bilinear_np
@@ -146,9 +150,11 @@ def trace_ensemble(
 
     One ``trace`` per realization: on a CUDA ensemble the fan kernel where
     it covers the configuration (spectral or segment profiles), one launch
-    each.  ``mesh``, ``calm`` and ``dyn`` must be None (not ported).
+    each.  ``mesh``: an optional 1D device mesh; the realizations split
+    over it (E must divide evenly), each shard on its device, and the
+    result is gathered on the mesh's first device.  ``calm`` and ``dyn``
+    must be None (not ported).
     """
-    _no_mesh(mesh)
     if calm is not None or dyn is not None:
         raise ValueError("the calm and dyn block classifiers are TPU scheduling and are not "
                          "ported; pass calm=None and dyn=None")
@@ -157,12 +163,53 @@ def trace_ensemble(
             "trace_ensemble requires x1 > x0; mirror the environment for "
             "backwards shots"
         )
+    if mesh is not None:
+        return _trace_ensemble_sharded(env_ens, z0, p0, x0, x1, num_save, settings, mesh)
     p0 = torch.as_tensor(p0, dtype=env_ens.dtype, device=env_ens.device)
     outs = [trace(m, z0, p0[e] if p0.ndim == 2 else p0, x0, x1, num_save, settings)
             for e, m in enumerate(_members(env_ens))]
     fields = {f.name: torch.stack([getattr(o, f.name) for o in outs])
               for f in dataclasses.fields(TraceResult) if f.name != "rs"}
     return TraceResult(rs=outs[0].rs, **fields)
+
+
+def _trace_ensemble_sharded(env_ens, z0, p0, x0, x1, num_save, settings, mesh):
+    """``trace_ensemble`` on each shard of the realization axis (the
+    counterpart of the JAX package's ``_trace_ensemble_sharded``): a
+    per-realization ``p0`` split with its realizations, a shared one on
+    every shard's device; the (E, B, ...) result gathered on the mesh's
+    first device."""
+    from .integrate import _gather_trace, _wants_derivative
+    from .parallel.sharding import ensemble_shards, run_shards
+
+    shards = ensemble_shards(env_ens, mesh)
+    p0 = torch.as_tensor(p0, dtype=env_ens.dtype)
+    ps = (torch.split(p0, p0.shape[0] // len(shards)) if p0.ndim == 2
+          else [p0] * len(shards))
+    ps = [p.to(e.device) for p, e in zip(ps, shards)]
+    derivative = _wants_derivative(p0) or _wants_derivative(z0)
+    outs = run_shards(mesh, lambda e, p: trace_ensemble(e, z0, p, x0, x1, num_save, settings),
+                      shards, ps, threads=False if derivative else None,
+                      kernels=settings.backend != "ops")
+    return _gather_trace(mesh, outs)
+
+
+def _by_realization(env_ens, mesh, settings, fn, per_e, axes):
+    """``fn(env_ens, *per_e)``; with ``mesh``, ``fn(shard, *per_e rows of
+    the shard)`` on each shard of the realization axis, on its device
+    (``per_e``: host arrays with a leading E axis), the shards' host
+    results concatenated along ``axes`` (an axis for one result, a tuple
+    of them for a tuple of results)."""
+    if mesh is None:
+        return fn(env_ens, *per_e)
+    from .parallel.sharding import ensemble_shards, run_shards
+
+    shards = ensemble_shards(env_ens, mesh)
+    parts = [np.split(np.asarray(a), len(shards)) for a in per_e]
+    outs = run_shards(mesh, fn, shards, *parts, kernels=settings.backend != "ops")
+    if isinstance(axes, int):
+        return np.concatenate(outs, axis=axes)
+    return tuple(np.concatenate(xs, axis=ax) for xs, ax in zip(zip(*outs), axes))
 
 
 def mc_eigenray_times(
@@ -194,10 +241,14 @@ def mc_eigenray_times(
 
     ``path`` says which solve ran: "one-shot" (fan, bracketing, Newton and
     the final evaluation on the device, the ensemble tangent kernel
-    driving the iterations) or "two-phase".  ``mesh`` must be None (not
-    ported).
+    driving the iterations) or "two-phase".  ``mesh``: an optional 1D
+    device mesh; the realization axis splits over it (E must divide
+    evenly), each shard solving its own realizations on its device.
     """
-    _no_mesh(mesh)
+    if mesh is not None:  # raise on a mesh the realizations cannot take, before any trace
+        from .parallel.sharding import ensemble_shards
+
+        ensemble_shards(env_ens, mesh)
     fan_angles = np.asarray(fan_angles, float)
     E = env_ens.c.shape[0]
     if not float(receiver_range) > float(source_range):
@@ -220,6 +271,7 @@ def mc_eigenray_times(
         out, z_end_f = _mc_one_shot_device(
             env_ens, fan_angles, c_src, float(source_depth), float(source_range),
             float(receiver_range), float(receiver_depth), float(ztol), int(max_iter), settings,
+            mesh,
         )
         if not (out[7] > 0.5).any():  # no capacity overflow
             counts = out[6, :, 0].astype(int)
@@ -250,11 +302,11 @@ def mc_eigenray_times(
         p0 = np.sin(np.radians(-np.broadcast_to(fan_angles, (E, fan_angles.size)))) / c_src[:, None]
         if kernel_ok:
             z_ode, alive_f = _fan_final_state(env_ens, source_depth, p0, source_range,
-                                              receiver_range, settings)
+                                              receiver_range, settings, mesh)
             z_end = np.where(alive_f, -z_ode, np.nan)
         else:
             fan = trace_ensemble(env_ens, source_depth, p0, source_range, receiver_range, 2,
-                                 settings)
+                                 settings, mesh)
             z_end = -fan.zs[..., -1].cpu().numpy().astype(float)  # (E, B) user convention
             z_end = np.where(fan.alive.cpu().numpy(), z_end, np.nan)
 
@@ -298,7 +350,7 @@ def mc_eigenray_times(
     out = _solve_ensemble_device(
         env_ens, theta0, th1, th2, z1, z2, ~valid, c_src, float(source_depth),
         float(source_range), float(receiver_range), rd_arr, float(ztol), int(max_iter),
-        settings, kernel_ok,
+        settings, kernel_ok, mesh,
     )
     converged = out[1] > 0.5
     vals = {
@@ -369,15 +421,19 @@ def _ens_tangent(env_ens, source_depth, p0, dp0, geom, settings, sd=None):
     return trace_tangent_ensemble_kernel(env_ens, source_depth, p0, dp0, geom, settings, sd)
 
 
-def _fan_final_state(env_ens, source_depth, p0, x0, x1, settings):
+def _fan_final_state(env_ens, source_depth, p0, x0, x1, settings, mesh=None):
     """(z_end_ode, alive) of an (E, B) fan: one ensemble-kernel launch and
-    one device→host copy."""
+    one device→host copy (a shard, on a mesh)."""
     s_it = dataclasses.replace(settings, kahan=False)
-    p0 = torch.as_tensor(p0, dtype=env_ens.dtype, device=env_ens.device)
-    out = _ens_tangent(env_ens, source_depth, p0, torch.zeros_like(p0), _geom(x0, x1, settings.dx),
-                       s_it)
-    packed = torch.stack([out[1], (out[8] == 0).to(out[1].dtype)]).cpu().numpy().astype(float)
-    return packed[0], packed[1] > 0.5
+
+    def run(env, p0):
+        p0 = torch.as_tensor(p0, dtype=env.dtype, device=env.device)
+        out = _ens_tangent(env, source_depth, p0, torch.zeros_like(p0),
+                           _geom(x0, x1, settings.dx), s_it)
+        packed = torch.stack([out[1], (out[8] == 0).to(out[1].dtype)]).cpu().numpy()
+        return packed[0].astype(float), packed[1] > 0.5
+
+    return _by_realization(env_ens, mesh, settings, run, (p0,), (0, 0))
 
 
 def _solve(zeval, theta, th1, th2, z1, z2, dead, rd, ztol, max_iter, use_newton):
@@ -410,7 +466,7 @@ def _final_fans(env_ens, source_depth, p_fin, x0, x1, settings):
 
 def _mc_one_shot_device(
     env_ens, fan_angles, c_src, source_depth, source_range, receiver_range,
-    rd, ztol, max_iter, settings,
+    rd, ztol, max_iter, settings, mesh=None,
 ):
     """The fan, bracketing, every Newton iteration and the final
     evaluation on the ensemble's device, and one device→host copy.
@@ -420,8 +476,19 @@ def _mc_one_shot_device(
     ``np.where(np.diff(sign) != 0)`` order); an overflow flag lets the
     caller fall back to the two-phase flow.  Returns the packed (8, E, M)
     result (θ, converged, t, |z residual|, n_surf, n_bott, bracket count,
-    overflow) and the fan's (E, B) final depths, as numpy arrays.
+    overflow) and the fan's (E, B) final depths, as numpy arrays.  On a
+    mesh, all of it once a shard of the realization axis.
     """
+    return _by_realization(
+        env_ens, mesh, settings,
+        lambda env, cs: _one_shot(env, fan_angles, cs, source_depth, source_range,
+                                  receiver_range, rd, ztol, max_iter, settings),
+        (c_src,), (1, 0))
+
+
+def _one_shot(env_ens, fan_angles, c_src, source_depth, source_range, receiver_range, rd, ztol,
+              max_iter, settings):
+    """``_mc_one_shot_device`` on one device."""
     geom = _geom(source_range, receiver_range, settings.dx)
     s_it = dataclasses.replace(settings, kahan=False)
     dev, dt = env_ens.device, env_ens.dtype
@@ -472,6 +539,7 @@ def _mc_one_shot_device(
 def _solve_ensemble_device(
     env_ens, theta0, th1, th2, z1, z2, dead0, c_src,
     source_depth, source_range, receiver_range, rd, ztol, max_iter, settings, use_kernel,
+    mesh=None,
 ):
     """Root finding over all (realization × bracket) candidates plus the
     final evaluation of the converged angles on the ensemble's device: one
@@ -481,14 +549,27 @@ def _solve_ensemble_device(
     exact dz/dθ (one ensemble-kernel launch per iteration); otherwise a
     bracket-safeguarded regula falsi on one 2-save ``trace`` per
     realization per iteration.  The final evaluation compensates (Kahan)
-    as ``settings`` says.
+    as ``settings`` says.  On a mesh, all of it once a shard of the
+    realization axis.
     """
+    rd_arr = np.broadcast_to(np.asarray(rd, float), theta0.shape)
+    rows = np.stack([theta0, th1, th2, z1, z2, dead0.astype(float), rd_arr], axis=1)
+    return _by_realization(
+        env_ens, mesh, settings,
+        lambda env, rows, cs: _solve_candidates(env, rows, cs, source_depth, source_range,
+                                                receiver_range, ztol, max_iter, settings,
+                                                use_kernel),
+        (rows, c_src), 1)
+
+
+def _solve_candidates(env_ens, rows, c_src, source_depth, source_range, receiver_range, ztol,
+                      max_iter, settings, use_kernel):
+    """``_solve_ensemble_device`` on one device: ``rows`` (E, 7, M) the
+    candidates' θ0, brackets, dead flags and receiver depths."""
     geom = _geom(source_range, receiver_range, settings.dx)
     dev, dt = env_ens.device, env_ens.dtype
     s_it = dataclasses.replace(settings, kahan=settings.kahan and not use_kernel)
-    rd_arr = np.broadcast_to(np.asarray(rd, float), theta0.shape)
-    packed = torch.as_tensor(
-        np.stack([theta0, th1, th2, z1, z2, dead0.astype(float), rd_arr]), dtype=dt, device=dev)
+    packed = torch.as_tensor(rows, dtype=dt, device=dev).transpose(0, 1).contiguous()
     th0, t1, t2, za, zb, dd0, rd_d = packed
     csrc_d = torch.as_tensor(c_src, dtype=dt, device=dev)[:, None]
     sd = _ens_step_data(env_ens, geom, s_it) if use_kernel else None

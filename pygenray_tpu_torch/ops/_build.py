@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["build", "load", "find_nvcc", "sources", "NVCC_FLAGS"]
@@ -39,6 +40,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS = {}
+# one build and load at a time: threads of the mesh dispatch may ask at once
+_LOCK = threading.RLock()
 BUILD_LOG = ""  # nvcc's output (ptxas register/spill report) of the last build
 
 
@@ -75,6 +78,11 @@ def library_path(name: str) -> Path:
 def build() -> dict:
     """Compile every kernel source whose library for the current sources
     is missing, one ``nvcc`` each, in parallel; returns {name: path}."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> dict:
     global BUILD_LOG
     paths = {name: library_path(name) for name in sources()}
     todo = {name: so for name, so in paths.items() if not so.exists()}
@@ -84,7 +92,7 @@ def build() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, so in todo.items():
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
@@ -106,7 +114,8 @@ def build() -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build()[name]))
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(str(build()[name]))
+        return lib

@@ -66,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import torch
@@ -84,7 +85,7 @@ __all__ = [
     "trace_tangent_save_kernel", "trace_tangent_ensemble_kernel", "trace_coef_tangent_kernel",
     "trace_coef_tangent_rd_kernel", "LAUNCHES", "SEG_LAUNCHES", "TANGENT_LAUNCHES",
     "TANGENT_SAVE_LAUNCHES", "TANGENT_ENS_LAUNCHES", "COEF_TANGENT_LAUNCHES",
-    "COEF_TANGENT_RD_LAUNCHES",
+    "COEF_TANGENT_RD_LAUNCHES", "thread_launches", "load_kernels",
 ]
 
 # Numbers of kernel launches since import (or since a caller reset them):
@@ -96,6 +97,23 @@ TANGENT_SAVE_LAUNCHES = 0  # trace_tangent_save_f32
 TANGENT_ENS_LAUNCHES = 0  # trace_tangent_ens_f32
 COEF_TANGENT_LAUNCHES = 0  # trace_coef_tangent_f32, range-independent
 COEF_TANGENT_RD_LAUNCHES = 0  # trace_coef_tangent_f32, range-dependent
+# the mesh dispatch (parallel/sharding.py) launches from several threads:
+# each count is added under a lock, and to the launching thread's own count
+_COUNT_LOCK = threading.Lock()
+_THREAD_COUNTS = threading.local()
+
+
+def _count(name, n=1):
+    """Add ``n`` to the launch counter ``name`` and to this thread's count."""
+    with _COUNT_LOCK:
+        globals()[name] += n
+    own = _THREAD_COUNTS.__dict__
+    own[name] = own.get(name, 0) + n
+
+
+def thread_launches() -> dict:
+    """``{counter: launches}`` made on the calling thread since it started."""
+    return dict(_THREAD_COUNTS.__dict__)
 
 MAX_K = 256  # coefficient rows held in shared memory (csrc TF_MAX_K)
 MAX_KB = 128  # bottom-angle series length (csrc TF_MAX_KB)
@@ -410,6 +428,7 @@ _ARGTYPES = {
     ),
 }
 _FNS = {}
+_FNS_LOCK = threading.Lock()
 
 
 def _kernel_fn(name):
@@ -419,11 +438,21 @@ def _kernel_fn(name):
     if fn is None:
         from . import _build
 
-        fn = getattr(_build.load(name.rsplit("_", 1)[0]), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        with _FNS_LOCK:
+            fn = _FNS.get(name)
+            if fn is None:
+                fn = getattr(_build.load(name.rsplit("_", 1)[0]), name)
+                fn.argtypes = _ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                _FNS[name] = fn
     return fn
+
+
+def load_kernels():
+    """Build (at first use) and load every kernel library and resolve its
+    entry points; raises if one fails to build."""
+    for name in _ARGTYPES:
+        _kernel_fn(name)
 
 
 def _launch(name, dev, args, inp, geom):
@@ -458,7 +487,6 @@ def trace_kernel(env, z0, p0, geom, settings, geo=None) -> TraceResult:
     None.  On a CUDA environment this launches the kernel or raises; on a
     CPU environment it runs the plain version, ``_trace_impl``.
     """
-    global LAUNCHES, SEG_LAUNCHES
     if not kernel_supported(env, settings):
         raise ValueError("configuration not covered by the CUDA trace kernel")
     dev = _check_device(env, "trace_kernel")
@@ -489,8 +517,8 @@ def trace_kernel(env, z0, p0, geom, settings, geo=None) -> TraceResult:
                  B, K, inp.bacoef.shape[0], nseg, sps, int(c.use_pow), int(c.bangle_cheb),
                  int(c.term_back), int(c.kahan), c.seg, S, nr, c.seg_zlo, c.seg_hinv],
                 inp, geom)
-        LAUNCHES += 1
-        SEG_LAUNCHES += bool(c.seg)
+        _count("LAUNCHES")
+        _count("SEG_LAUNCHES", int(bool(c.seg)))
     if not rows:
         ts, zs, ps = (g.t().contiguous() for g in (ts, zs, ps))
     return _fan_result(x0, x1, ts, zs, ps, n_surf, n_bott, death, dseg)
@@ -521,7 +549,6 @@ def trace_tangent_kernel(env, z0, p0, dp0, geom, settings):
     On a CUDA environment this launches the kernel or raises; on a CPU
     environment it runs the plain version, ``_trace_tangent_impl``.
     """
-    global TANGENT_LAUNCHES
     if not tangent_supported(env, settings):
         raise ValueError("configuration not covered by the CUDA tangent kernel")
     dev = _check_device(env, "trace_tangent_kernel")
@@ -542,7 +569,7 @@ def trace_tangent_kernel(env, z0, p0, dp0, geom, settings):
                  B, inp.ccoef.shape[0], inp.bacoef.shape[0], sps * nseg, int(c.use_pow),
                  int(c.bangle_cheb), int(c.term_back)],
                 inp, geom)
-        TANGENT_LAUNCHES += 1
+        _count("TANGENT_LAUNCHES")
     return outs
 
 
@@ -558,7 +585,6 @@ def trace_tangent_save_kernel(env, z0, p0, dp0, geom, settings, dz0=None):
     On a CUDA environment this launches the kernel or raises; on a CPU
     environment it runs the plain version, ``_trace_tangent_save_impl``.
     """
-    global TANGENT_SAVE_LAUNCHES
     if not tangent_supported(env, settings):
         raise ValueError("configuration not covered by the CUDA save-grid tangent kernel")
     dev = _check_device(env, "trace_tangent_save_kernel")
@@ -584,7 +610,7 @@ def trace_tangent_save_kernel(env, z0, p0, dp0, geom, settings, dz0=None):
                  B, inp.ccoef.shape[0], inp.bacoef.shape[0], nseg, sps, int(c.use_pow),
                  int(c.bangle_cheb), int(c.term_back)],
                 inp, geom)
-        TANGENT_SAVE_LAUNCHES += 1
+        _count("TANGENT_SAVE_LAUNCHES")
 
     ts, zs, ps, dts, dzs, dps = (g.t().contiguous() for g in grids)
     # alive at save point k  <=>  k precedes the ray's first-dead save index
@@ -611,7 +637,6 @@ def trace_tangent_ensemble_kernel(env_ens, z0, p0, dp0, geom, settings, sd=None)
     On a CUDA ensemble this launches the kernel or raises; on a CPU
     ensemble it runs the plain version, ``_trace_tangent_ens_impl``.
     """
-    global TANGENT_ENS_LAUNCHES
     if torch.as_tensor(z0).ndim != 0:
         raise ValueError("the ensemble tangent kernel takes a scalar source depth (got shape "
                          f"{tuple(torch.as_tensor(z0).shape)}); per-candidate depths are "
@@ -644,7 +669,7 @@ def trace_tangent_ensemble_kernel(env_ens, z0, p0, dp0, geom, settings, sd=None)
                  E, M, inp.ccoef.shape[1], inp.bacoef.shape[0], geom[3] * geom[4],
                  int(c.use_pow), int(c.bangle_cheb), int(c.term_back)],
                 inp, geom)
-        TANGENT_ENS_LAUNCHES += 1
+        _count("TANGENT_ENS_LAUNCHES")
     return outs
 
 
@@ -653,7 +678,6 @@ def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd, geo):
     a CPU environment, else one launch of ``trace_coef_tangent_f32``
     (range-independent, or ``rd``), counted; ``geo``: ``step_geometry``,
     built here when None."""
-    global COEF_TANGENT_LAUNCHES, COEF_TANGENT_RD_LAUNCHES
     if bool(env.range_dependent) != rd:
         raise ValueError("trace_coef_tangent_rd_kernel takes range-dependent fits and "
                          "trace_coef_tangent_kernel range-independent ones")
@@ -688,10 +712,7 @@ def _coef_launch(env, z0, p0, dcoef, dcpcoef, geom, settings, rd, geo):
                  B, K, inp.bacoef.shape[0], sps * nseg, dc.shape[0], nr if rd else 1,
                  int(c.bangle_cheb), int(c.term_back)],
                 inp, geom)
-        if rd:
-            COEF_TANGENT_RD_LAUNCHES += 1
-        else:
-            COEF_TANGENT_LAUNCHES += 1
+        _count("COEF_TANGENT_RD_LAUNCHES" if rd else "COEF_TANGENT_LAUNCHES")
     return outs
 
 

@@ -99,8 +99,13 @@ def _trace_fan(
     flatearth,
     dtype,
     device,
+    mesh=None,
 ):
-    """Shared fan-trace core in the ODE convention. Returns (result, env, backwards)."""
+    """Shared fan-trace core in the ODE convention. Returns (result, env, backwards).
+
+    With ``mesh``, the launch parameters (and a per-ray source depth) are
+    sharded over it (``parallel.shard_rays``) and ``trace`` gathers the
+    result on the mesh's first device."""
     backwards = receiver_range < source_range
     env = _resolve_env(environment, flatearth, backwards, settings.interp, dtype, device)
     if backwards:
@@ -119,6 +124,12 @@ def _trace_fan(
         source_depth = torch.tensor(source_depth, dtype=env.dtype, device=env.device)
     else:
         source_depth = float(source_depth)
+    if mesh is not None:
+        from .parallel.sharding import shard_rays
+
+        p0 = shard_rays(p0, mesh)
+        if isinstance(source_depth, torch.Tensor):
+            source_depth = shard_rays(source_depth, mesh)
 
     res = trace(env, source_depth, p0, x0, x1, num_range_save, settings)
     return res, env, backwards
@@ -155,11 +166,12 @@ def shoot_rays(
     CUDA device unless the caller asks for another, e.g. ``"cpu"``; an
     ``EnvData`` keeps its own), ``backend`` (see ``SolverSettings``) and
     ``keep_dropped`` (keep dead rays in the fan with their death
-    diagnostics instead of dropping them).  ``mesh`` (the JAX package's
-    sharding of the angle axis) must be None: tracing across several
-    devices is not ported yet.  Rays that turn vertical, leave
-    the domain, or bounce backwards are dropped from the fan exactly like
-    the reference drops ``None`` rays.
+    diagnostics instead of dropping them).  ``mesh`` (``parallel.make_mesh``)
+    shards the angle axis over its devices, each shard traced on its
+    device (the CUDA kernel on a card) and the fan gathered on the mesh's
+    first device; the angle count must divide by the device count.  Rays
+    that turn vertical, leave the domain, or bounce backwards are dropped
+    from the fan exactly like the reference drops ``None`` rays.
 
     With ``keep_dropped=True``, save points past a ray's death are NaN; pass
     ``nan_dropped=False`` to keep the integrator's frozen last-alive state
@@ -168,9 +180,6 @@ def shoot_rays(
     import sys
     import time as _time
 
-    if mesh is not None:
-        raise NotImplementedError("tracing across a device mesh is not ported yet (ROADMAP "
-                                  "A11); pass mesh=None")
     launch_angles = np.atleast_1d(np.asarray(launch_angles, float))
     theta_ode = -launch_angles
     settings = settings_for(rtol, dx, interp, terminate_backwards, backend)
@@ -189,7 +198,7 @@ def shoot_rays(
 
     res, env, backwards = _trace_fan(
         source_depth, source_range, theta_ode, receiver_range, num_range_save,
-        environment, settings, flatearth, dtype, device,
+        environment, settings, flatearth, dtype, device, mesh,
     )
 
     alive = _np(res.alive)

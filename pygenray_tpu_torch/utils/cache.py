@@ -10,6 +10,7 @@ tensor shapes, dtypes and device — never on the tensor values.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import OrderedDict
 
 import torch
@@ -32,24 +33,29 @@ def env_struct_key(env):
 
 class LRUCache:
     """Bounded mapping that evicts only the least-recently-used entry
-    (a full ``clear()`` on overflow would drop live entries too)."""
+    (a full ``clear()`` on overflow would drop live entries too); safe to
+    share between threads (the mesh dispatch's workers)."""
 
     def __init__(self, maxsize: int):
         self.maxsize = maxsize
         self._data = OrderedDict()
+        self._lock = threading.Lock()
 
     def get(self, key):
-        try:
-            self._data.move_to_end(key)
-            return self._data[key]
-        except KeyError:
-            return None
+        with self._lock:
+            try:
+                self._data.move_to_end(key)
+                return self._data[key]
+            except KeyError:
+                return None
 
     def put(self, key, value):
-        self._data[key] = value
-        self._data.move_to_end(key)
-        while len(self._data) > self.maxsize:
-            self._data.popitem(last=False)
+        with self._lock:
+            self._data[key] = value
+            self._data.move_to_end(key)
+            while len(self._data) > self.maxsize:
+                self._data.popitem(last=False)
 
     def __len__(self):
-        return len(self._data)
+        with self._lock:
+            return len(self._data)

@@ -15,7 +15,12 @@ and its root-finding update, on CPU, against the JAX package.
 * Without ``device=``, the entry points build on the CUDA device: on a box
   without a card they raise.
 
-The kernels behind the solver on a card run in ``chip_smoke.py``.
+The JAX package's ``find_eigenrays`` answers for the cases above (all but
+the one without brackets, which compiles nothing) are read from
+``fixtures/port_tests_jax.npz`` (section ``eigenrays``, written by
+``fixtures/make_port_tests_fixture.py`` through ``case_call`` below): its
+compiles cost about 30 s in every test process.  The kernels behind the
+solver on a card run in ``chip_smoke.py``.
 """
 
 import pathlib
@@ -29,7 +34,7 @@ import pygenray_tpu as jp
 import pygenray_tpu_torch as tp
 from pygenray_tpu.rootfind import rootfind_update as j_rootfind_update
 from pygenray_tpu_torch.rootfind import rootfind_update
-from torch_fixtures import one_blas_thread  # noqa: F401
+from torch_fixtures import jax_answers, one_blas_thread  # noqa: F401
 
 R = 30e3
 DX = 1000.0
@@ -38,6 +43,9 @@ RDS = [1300.0, 2500.0]
 NUM_SAVE = 5
 ZTOL = 1e-2
 TOL = {"float64": (1e-9, 1e-9), "float32": (5e-3, 1e-5)}  # (degrees, seconds)
+# the cases whose JAX answers the fixture holds
+JAX_CASES = ("float64-newton", "float64-regula_falsi", "float32-newton",
+             "float32-regula_falsi", "backwards", "table", "segment")
 
 
 def _tables():
@@ -46,19 +54,11 @@ def _tables():
     return np.outer(np.ones(6), jp.munk_ssp(z)), r, z, np.full(6, 4600.0), r
 
 
-@pytest.fixture(scope="module")
-def envs():
-    """Per dtype: the JAX package's and the port's environment from the
-    same numpy tables, and the port's fan (host arrays, which both
-    packages' ``find_eigenrays`` read alike: the fans agree, see
-    ``test_torch_shoot.py``)."""
-    out = {}
-    for dtype in ("float64", "float32"):
-        je = jp.make_env_data(*_tables(), dtype=jnp.dtype(dtype))
-        te = tp.make_env_data(*_tables(), dtype=getattr(torch, dtype), device="cpu")
-        fan = tp.shoot_rays(1300.0, 0.0, ANGLES, R, 2, te, flatearth=False, dx=DX)
-        out[dtype] = (je, te, fan, fan)
-    return out
+def _env(pkg, dtype, **kw):
+    """``make_env_data`` of ``pkg`` (``jp`` or ``tp``) on ``_tables()``."""
+    if pkg is jp:
+        return jp.make_env_data(*_tables(), dtype=jnp.dtype(dtype), **kw)
+    return tp.make_env_data(*_tables(), dtype=getattr(torch, dtype), device="cpu", **kw)
 
 
 def _solve(pkg, fan, env, method, **kw):
@@ -66,15 +66,89 @@ def _solve(pkg, fan, env, method, **kw):
                               flatearth=False, dx=DX, method=method, **kw)
 
 
+def case_call(pkg, case, te=None):
+    """``find_eigenrays`` of one of ``JAX_CASES`` through ``pkg`` on the
+    port's fan (host arrays, which both packages read alike: the fans agree,
+    see ``test_torch_shoot.py``); ``te``: the port's environment of the
+    case, built when None."""
+    dtype, _, method = case.partition("-")
+    env_kw = {"table": {"interp": "table"}, "segment": {"interp": "seg"}}.get(case, {})
+    dtype = {"backwards": "float64", "table": "float64", "segment": "float32"}.get(case, dtype)
+    te = _env(tp, dtype, **env_kw) if te is None else te
+    env = te if pkg is tp else _env(jp, dtype, **env_kw)
+    if case in ("table", "segment"):
+        kw = dict(flatearth=False, dx=3000.0)
+        fan = tp.shoot_rays(1300.0, 0.0, np.linspace(-12.0, 12.0, 8), R, 2, te, **kw)
+        return pkg.find_eigenrays(fan, [1300.0], 1300.0, 0.0, R, 2, env, ztol=ZTOL, **kw)
+    if case == "backwards":  # receiver before the source
+        fan = tp.shoot_rays(1300.0, R, ANGLES, 0.0, 2, te, flatearth=False, dx=DX)
+        return pkg.find_eigenrays(fan, [1300.0], 1300.0, R, 0.0, NUM_SAVE, env, flatearth=False,
+                                  dx=DX, ztol=ZTOL, method="regula_falsi")
+    fan = tp.shoot_rays(1300.0, 0.0, ANGLES, R, 2, te, flatearth=False, dx=DX)
+    return _solve(pkg, fan, env, method)
+
+
+def eigen_params():
+    """The parameters the fixture's answers depend on."""
+    return {"R": R, "DX": DX, "angles": ANGLES.tolist(), "rds": RDS, "num_save": NUM_SAVE,
+            "ztol": ZTOL}
+
+
+def eigen_record(er) -> dict:
+    """An ``EigenRays``' numbers as arrays, the fixture's form."""
+    rds = list(er.num_eigenrays)
+    out = {"rds": np.asarray(rds, float), "num": np.asarray(list(er.num_eigenrays.values())),
+           "found": np.asarray([er.num_eigenrays_found[i] for i in range(len(rds))])}
+    for i in range(len(rds)):
+        if er.num_eigenrays_found[i]:
+            for f, name in (("launch_angles", "angles"), ("ts", "ts"), ("n_botts", "n_botts"),
+                            ("n_surfs", "n_surfs")):
+                out[f"{name}{i}"] = np.asarray(getattr(er, f)[i])
+    out.update({f"diag_{k}": np.asarray(v) for k, v in er.diagnostics.items()})
+    return out
+
+
+class EigenRecord:
+    """The JAX package's ``EigenRays`` of one case, read from the fixture:
+    the attributes ``assert_eigenrays_match`` and the tests read."""
+
+    def __init__(self, a):
+        n = len(a["rds"])
+        self.num_eigenrays = {float(r): int(k) for r, k in zip(a["rds"], a["num"])}
+        self.num_eigenrays_found = {i: int(k) for i, k in enumerate(a["found"])}
+        self.launch_angles, self.ts, self.n_botts, self.n_surfs = (
+            {i: a.get(f"{name}{i}") for i in range(n)}
+            for name in ("angles", "ts", "n_botts", "n_surfs"))
+        self.diagnostics = {k[5:]: v for k, v in a.items() if k.startswith("diag_")}
+
+
 @pytest.fixture(scope="module")
-def solved(envs):
-    """(JAX, port) EigenRays per (dtype, method), computed once."""
+def jax_eigen():
+    """``{case: EigenRecord}``: the JAX package's answers of ``JAX_CASES``."""
+    fx = jax_answers("eigenrays", **eigen_params())
+    return {c: EigenRecord({k[len(c) + 1:]: v for k, v in fx.items() if k.startswith(c + "/")})
+            for c in JAX_CASES}
+
+
+@pytest.fixture(scope="module")
+def envs():
+    """Per dtype: the port's environment and fan."""
+    out = {}
+    for dtype in ("float64", "float32"):
+        te = _env(tp, dtype)
+        out[dtype] = (te, tp.shoot_rays(1300.0, 0.0, ANGLES, R, 2, te, flatearth=False, dx=DX))
+    return out
+
+
+@pytest.fixture(scope="module")
+def solved(envs, jax_eigen):
+    """(JAX, port) EigenRays per (dtype, method), the port's computed once."""
     cache = {}
 
     def get(dtype, method):
         if (dtype, method) not in cache:
-            je, te, jf, tf = envs[dtype]
-            cache[dtype, method] = (_solve(jp, jf, je, method), _solve(tp, tf, te, method))
+            te, tf = envs[dtype]
+            cache[dtype, method] = (jax_eigen[f"{dtype}-{method}"], _solve(tp, tf, te, method))
         return cache[dtype, method]
 
     return get
@@ -147,7 +221,7 @@ def test_diagnostics_keys_and_dtypes(solved):
 
 
 def test_verbose_matches_device_path(envs, solved):
-    _, te, _, tf = envs["float64"]
+    te, tf = envs["float64"]
     dev = solved("float64", "newton")[1]
     host = _solve(tp, tf, te, "newton", verbose=True)
     assert_eigenrays_match(dev, host, len(RDS), 1e-10, 1e-10)
@@ -156,9 +230,9 @@ def test_verbose_matches_device_path(envs, solved):
 
 
 def test_no_brackets(envs):
-    je, te, jf, tf = envs["float64"]
+    te, tf = envs["float64"]
     kw = dict(flatearth=False, dx=DX)
-    ej = jp.find_eigenrays(jf, [5500.0], 1300.0, 0.0, R, NUM_SAVE, je, **kw)
+    ej = jp.find_eigenrays(tf, [5500.0], 1300.0, 0.0, R, NUM_SAVE, _env(jp, "float64"), **kw)
     et = tp.find_eigenrays(tf, [5500.0], 1300.0, 0.0, R, NUM_SAVE, te, **kw)
     assert et.num_eigenrays == ej.num_eigenrays == {5500.0: 0}
     assert et.num_eigenrays_found == ej.num_eigenrays_found == {0: 0}
@@ -166,36 +240,26 @@ def test_no_brackets(envs):
         assert et.diagnostics[k].dtype == v.dtype and et.diagnostics[k].size == 0
 
 
-def test_backwards_shot_matches_jax(envs):
+def test_backwards_shot_matches_jax(envs, jax_eigen):
     """Receiver before the source: both packages mirror the environment."""
-    je, te, _, _ = envs["float64"]
-    kw = dict(flatearth=False, dx=DX, ztol=ZTOL, method="regula_falsi")
-    tf = tp.shoot_rays(1300.0, R, ANGLES, 0.0, 2, te, flatearth=False, dx=DX)
-    ej = jp.find_eigenrays(tf, [1300.0], 1300.0, R, 0.0, NUM_SAVE, je, **kw)
-    et = tp.find_eigenrays(tf, [1300.0], 1300.0, R, 0.0, NUM_SAVE, te, **kw)
+    ej, et = jax_eigen["backwards"], case_call(tp, "backwards", envs["float64"][0])
     assert et.num_eigenrays_found[0] >= 2
     assert_eigenrays_match(ej, et, 1, *TOL["float64"])
     assert et.rs[0][0, 0] == R and et.rs[0][0, -1] == 0.0
 
 
-def test_table_interp_jvp_path_matches_jax():
+def test_table_interp_jvp_path_matches_jax(jax_eigen):
     """Table profiles have no forward-tangent trace: Newton runs
     ``torch.func.jvp`` over the torch-op loop, as the JAX package runs
     ``jax.jvp`` over its scan."""
-    kw = dict(flatearth=False, dx=3000.0)
-    args = _tables()
-    je = jp.make_env_data(*args, interp="table", dtype=jnp.float64)
-    te = tp.make_env_data(*args, interp="table", device="cpu", dtype=torch.float64)
+    te = _env(tp, "float64", interp="table")
     assert not te.has_cheb
-    angles = np.linspace(-12.0, 12.0, 8)
-    tf = tp.shoot_rays(1300.0, 0.0, angles, R, 2, te, **kw)
-    ej = jp.find_eigenrays(tf, [1300.0], 1300.0, 0.0, R, 2, je, ztol=ZTOL, **kw)
-    et = tp.find_eigenrays(tf, [1300.0], 1300.0, 0.0, R, 2, te, ztol=ZTOL, **kw)
+    ej, et = jax_eigen["table"], case_call(tp, "table", te)
     assert et.num_eigenrays_found[0] >= 2
     assert_eigenrays_match(ej, et, 1, *TOL["float64"])
 
 
-def test_segment_profile_never_reaches_the_tangent_kernels(monkeypatch):
+def test_segment_profile_never_reaches_the_tangent_kernels(monkeypatch, jax_eigen):
     """A segment fit runs on the fan kernel (B1d) but has no
     forward-tangent kernel, in either package (``tangent_supported`` needs
     a spectral fit): Newton runs ``torch.func.jvp`` over the torch-op loop
@@ -203,25 +267,20 @@ def test_segment_profile_never_reaches_the_tangent_kernels(monkeypatch):
     package's arrivals."""
     from pygenray_tpu_torch.ops import stepper
 
-    kw = dict(flatearth=False, dx=3000.0)
-    args = _tables()
-    je = jp.make_env_data(*args, interp="seg", dtype=jnp.float32)
-    te = tp.make_env_data(*args, interp="seg", device="cpu", dtype=torch.float32)
+    te = _env(tp, "float32", interp="seg")
     s = tp.SolverSettings(dx=3000.0)
     assert te.has_seg and stepper.kernel_supported(te, s) and not stepper.tangent_supported(te, s)
     calls = []
     monkeypatch.setattr(stepper, "trace_tangent_kernel", lambda *a, **k: calls.append(a))
     n0 = stepper.TANGENT_LAUNCHES
-    tf = tp.shoot_rays(1300.0, 0.0, np.linspace(-12.0, 12.0, 8), R, 2, te, **kw)
-    ej = jp.find_eigenrays(tf, [1300.0], 1300.0, 0.0, R, 2, je, ztol=ZTOL, **kw)
-    et = tp.find_eigenrays(tf, [1300.0], 1300.0, 0.0, R, 2, te, ztol=ZTOL, **kw)
+    ej, et = jax_eigen["segment"], case_call(tp, "segment", te)
     assert not calls and stepper.TANGENT_LAUNCHES == n0
     assert et.num_eigenrays_found[0] >= 2
     assert_eigenrays_match(ej, et, 1, *TOL["float32"])
 
 
 def test_batch_matches_per_config_calls(envs):
-    _, te, _, _ = envs["float64"]
+    te, _ = envs["float64"]
     sources = [1100.0, 1500.0]
     kw = dict(ztol=ZTOL, flatearth=False, dx=DX)
     batch = tp.find_eigenrays_batch(ANGLES, RDS, sources, 0.0, R, NUM_SAVE, te, **kw)
@@ -237,10 +296,18 @@ def test_batch_matches_per_config_calls(envs):
 
 @pytest.mark.parametrize("fn", ["find_eigenrays", "find_eigenrays_batch"])
 def test_mesh_is_not_ported_yet(fn, envs):
-    _, te, _, tf = envs["float64"]
+    """The mesh is ported (``tests/test_torch_sharding.py``): what is not a
+    ``parallel.Mesh`` raises ``TypeError``, a 2D mesh the JAX package's
+    ``ValueError``."""
+    from pygenray_tpu_torch.parallel import Mesh
+
+    te, tf = envs["float64"]
     first = tf if fn == "find_eigenrays" else ANGLES
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="Mesh"):
         getattr(tp, fn)(first, RDS, 1300.0, 0.0, R, NUM_SAVE, te, mesh=object())
+    two_d = Mesh(np.array([torch.device("cpu")] * 4, dtype=object).reshape(2, 2), ("a", "b"))
+    with pytest.raises(ValueError, match="expects a 1D mesh"):
+        getattr(tp, fn)(first, RDS, 1300.0, 0.0, R, NUM_SAVE, te, mesh=two_d)
 
 
 def _default_device_calls():

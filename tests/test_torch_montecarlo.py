@@ -252,9 +252,11 @@ def test_mc_overflow_falls_back_to_two_phase(mc_runs, monkeypatch):
 
 def test_mc_not_ported_options_raise():
     _, te = ensemble_pair("eig")
-    with pytest.raises(NotImplementedError, match="A11"):
+    # the mesh is ported (tests/test_torch_sharding.py): what is not a
+    # parallel.Mesh raises TypeError
+    with pytest.raises(TypeError, match="Mesh"):
         tmc.mc_eigenray_times(te, MC_FAN, mesh=object(), **MC_KW)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         tmc.trace_ensemble(te, 1300.0, np.zeros(2), 0.0, 1e3, 2, mesh=object())
     for kw in ({"calm": np.zeros((2, 4))}, {"dyn": np.zeros((2, 1, 4))}):
         with pytest.raises(ValueError, match="calm and dyn"):

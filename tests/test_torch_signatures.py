@@ -2,8 +2,9 @@
 the two flat namespaces share takes the reference's parameters, in the
 reference's order, with only ``device`` added, and the reference's
 defaults; ``SolverSettings`` has the reference's fields and defaults; and
-what the port has not ported (a device mesh, the TPU block classifiers)
-raises a named error instead of a ``TypeError``."""
+what the port has not ported (the TPU block classifiers) raises a named
+error, and a mesh that is not a ``parallel.Mesh`` a ``TypeError`` naming
+it."""
 
 import dataclasses
 import inspect
@@ -64,7 +65,7 @@ def test_unported_keywords_raise_named_errors():
     env = pt.make_env_data(np.outer(np.ones(2), pt.munk_ssp(z)), r, z, np.full(2, 5000.0), r,
                            dtype="float64", device="cpu", interp="table", cheb_order=3,
                            seg_order=3)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="Mesh"):
         pt.shoot_rays(1000.0, 0.0, [0.0], 5e3, 2, env, mesh=object(), device="cpu")
     for kw in ({"calm": (0, 1)}, {"dyn": np.zeros(3)}, {"hot": True}):
         with pytest.raises(ValueError, match="not ported"):
